@@ -1,0 +1,25 @@
+"""cudasp_tpu_torch: BIP-352 silent-payments scanning in PyTorch and CUDA.
+
+The port of the JAX package `cudasp_tpu` to one NVIDIA H100: the same
+`scan` table function, with the fused TPU scan kernel rewritten by hand in
+CUDA C++ for sm_90a (csrc/). Entry points run on the GPU unless the caller
+passes device="cpu", which runs the kernel's plain-torch version. Imports
+torch and numpy, never jax and nothing of cudasp_tpu.
+"""
+
+import numpy as np
+
+from .api import ScanConfig, ScanResult, scan
+from .ops.field import limbs13_to_words
+from .runtime.errors import BindError, CudaspError, ExecutionError, IngestError
+
+
+def from_jax_limbs(limbs, axis: int = 0) -> np.ndarray:
+    """The JAX package's state in the port's format: 20x13-bit limb arrays
+    (pack_query_keys' spend and label planes, comb_table_np's x and y
+    halves) -> uint32 words, the 20 limbs on `axis` becoming 8 words."""
+    return limbs13_to_words(np.asarray(limbs), axis)
+
+
+__all__ = ["scan", "ScanConfig", "ScanResult", "from_jax_limbs",
+           "CudaspError", "BindError", "IngestError", "ExecutionError"]

@@ -1,0 +1,269 @@
+"""Public scan API (counterpart of cudasp_tpu/api.py:26-551).
+
+`scan(...)` is the DuckDB-style table function of the system: a table of
+(txid, height, tweak_key, outputs) rows in, the rows that pay the wallet
+out. Same wire formats and semantics as the JAX package.
+
+It runs on the GPU unless the caller passes device="cpu"; without a CUDA
+device it raises instead of falling back. On the GPU every batch goes
+through the hand-written scan kernel; on the CPU through its plain-torch
+version."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .io import ingest
+from .runtime.errors import BindError, IngestError
+from .runtime.executor import BatchExecutor
+from .runtime.metrics import ScanMetrics, Timer
+
+DEFAULT_BATCH_SIZE = 300_000       # the reference's default batch size
+MAX_BATCH_SIZE = 10_000_000        # the reference's cap
+TILE_CUDA = 262_144                # rows per kernel launch on the GPU
+TILE_CPU = 1024                    # rows per plain-version call on the CPU
+MAX_OUTPUTS_CAP = 30               # bits 30/31 of the validity mask are taken
+UPLOADS = {"full": "x", "full64": "xy"}
+
+
+@dataclass
+class ScanConfig:
+    batch_size: int = DEFAULT_BATCH_SIZE
+    max_outputs: int = 8            # padded outputs width (long lists split)
+    collect_metrics: bool = True
+    # rows per block-skip tile of the kernel's blockmask
+    block_rows: int = 256
+    # "full": 32-byte x + parity bit per row, the kernel recovers y;
+    # "full64": the 64-byte point, the kernel skips that square root
+    upload: str = "full"
+
+
+@dataclass
+class ScanResult:
+    """Matching rows, in input order."""
+    indices: np.ndarray             # (m,) int64 row indices into the input
+    txid: Optional[np.ndarray]      # None when the input had no such column
+    height: Optional[np.ndarray]
+    tweak_key: Optional[np.ndarray]
+    metrics: Optional[ScanMetrics] = None
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+
+def _normalize_blob_column(col, width: int, name: str):
+    """(n, width) uint8 array, list of bytes (None = NULL), or a pyarrow
+    array -> (blobs (n, width) uint8, valid (n,) bool). NULL rows come
+    back zero-filled and invalid; the scan skips them."""
+    if isinstance(col, np.ndarray) and col.dtype == np.uint8 and col.ndim == 2:
+        if col.shape[1] != width:
+            raise IngestError(
+                f"{name}: expected width {width}, got {col.shape[1]}")
+        return col, np.ones(col.shape[0], bool)
+    if hasattr(col, "is_valid") and hasattr(col, "to_pylist"):   # pyarrow
+        valid = np.asarray(col.is_valid())
+        rows = [b if v else b"\x00" * width
+                for b, v in zip(col.to_pylist(), valid)]
+    else:
+        try:
+            rows = [b"\x00" * width if b is None else bytes(b) for b in col]
+        except TypeError as e:
+            raise IngestError(
+                f"{name}: unsupported column type {type(col)}") from e
+        valid = np.array([b is not None for b in col], bool)
+    bad = [i for i, b in enumerate(rows) if len(b) != width]
+    if bad:
+        raise IngestError(f"{name}: row {bad[0]} has {len(rows[bad[0]])} "
+                          f"bytes, expected {width}")
+    if not rows:
+        return np.zeros((0, width), np.uint8), np.zeros(0, bool)
+    blobs = np.frombuffer(b"".join(rows), np.uint8).reshape(len(rows), width)
+    return blobs, valid
+
+
+def _normalize_outputs(col) -> Tuple[np.ndarray, np.ndarray]:
+    """outputs column -> CSR (flat int64, offsets). Takes (flat, offsets)
+    tuples, pyarrow list arrays or sequences of sequences; a NULL list is
+    empty and NULL elements are dropped."""
+    if isinstance(col, tuple) and len(col) == 2:
+        return (np.asarray(col[0], dtype=np.int64),
+                np.asarray(col[1], dtype=np.int64))
+    values = getattr(col, "values", None)
+    offsets = getattr(col, "offsets", None)
+    if values is not None and offsets is not None and col.null_count == 0 \
+            and getattr(values, "null_count", 0) == 0:
+        return (np.asarray(values, dtype=np.int64),
+                np.asarray(offsets, dtype=np.int64))
+    if hasattr(col, "to_pylist"):
+        col = col.to_pylist()
+    return ingest.outputs_to_csr(
+        [[] if o is None else [v for v in o if v is not None] for o in col])
+
+
+def _table_columns(table) -> Dict[str, object]:
+    """dict-like or pyarrow.Table -> column mapping."""
+    if hasattr(table, "column_names") and hasattr(table, "column"):
+        cols = {}
+        for name in table.column_names:
+            c = table.column(name)
+            if hasattr(c, "combine_chunks"):
+                c = c.combine_chunks()
+            cols[name] = c
+        return cols
+    if isinstance(table, dict):
+        return table
+    raise IngestError(f"unsupported table type {type(table)}")
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("cudasp_tpu_torch.scan runs on a CUDA device and "
+                           "none is available; pass device='cpu' to run the "
+                           "kernel's plain version on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise BindError(f"unsupported device {dev}")
+    return dev
+
+
+def scan(table, scan_private_key: bytes, spend_public_key: bytes,
+         label_keys: Sequence[bytes] = (), *,
+         batch_size: Optional[int] = None,
+         config: Optional[ScanConfig] = None, device=None) -> ScanResult:
+    """Scan `table` for BIP-352 silent-payment matches.
+
+    table: mapping (or pyarrow.Table) with columns
+        txid      - arbitrary per-row ids (passed through)
+        height    - int (passed through)
+        tweak_key - 64-byte blobs (LE x || LE y uncompressed point)
+        outputs   - per-row variable-length int64 lists
+    scan_private_key: 32-byte LE scalar blob
+    spend_public_key: 64-byte LE point blob
+    label_keys: 64-byte LE point blobs
+    device: "cuda" (default) or "cpu"."""
+    return _scan_impl(table, scan_private_key, spend_public_key, label_keys,
+                      batch_size=batch_size, config=config, device=device)
+
+
+def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
+               batch_size=None, config=None, device=None) -> ScanResult:
+    cfg = config or ScanConfig()
+    if batch_size is not None:
+        cfg.batch_size = batch_size
+    if not (0 < cfg.batch_size <= MAX_BATCH_SIZE):
+        raise BindError(f"batch_size must be in (0, {MAX_BATCH_SIZE}], got "
+                        f"{cfg.batch_size}")
+    if len(bytes(scan_private_key)) != 32:
+        raise BindError("scan_private_key must be exactly 32 bytes")
+    if len(bytes(spend_public_key)) != 64:
+        raise BindError("spend_public_key must be exactly 64 bytes")
+    for i, lk in enumerate(label_keys):
+        if len(bytes(lk)) != 64:
+            raise BindError(f"label_keys[{i}] must be exactly 64 bytes")
+    if cfg.upload not in UPLOADS:
+        raise BindError(f"upload must be one of {sorted(UPLOADS)}, got "
+                        f"{cfg.upload!r}")
+    dev = _resolve_device(device)
+
+    metrics = (ScanMetrics(batch_size=cfg.batch_size)
+               if cfg.collect_metrics else None)
+    timer = Timer()
+    cols = _table_columns(table)
+    for required in ("tweak_key", "outputs"):
+        if required not in cols:
+            raise IngestError(f"missing required column '{required}'")
+    tweaks, row_ok = _normalize_blob_column(cols["tweak_key"], 64,
+                                            "tweak_key")
+    flat, offsets = _normalize_outputs(cols["outputs"])
+    n = tweaks.shape[0]
+    if len(offsets) != n + 1:
+        raise IngestError(
+            f"outputs offsets length {len(offsets)} != rows+1 ({n + 1})")
+    # NULL txid/height also skip the row
+    for name in ("txid", "height"):
+        c = cols.get(name)
+        if c is not None and hasattr(c, "is_valid"):
+            row_ok &= np.asarray(c.is_valid())
+        elif isinstance(c, (list, tuple)):
+            row_ok &= np.array([v is not None for v in c], bool)
+
+    row_indices = None
+    if not row_ok.all():
+        keep = np.flatnonzero(row_ok)
+        ln = (offsets[1:] - offsets[:-1])[keep]
+        new_off = np.zeros(len(keep) + 1, np.int64)
+        np.cumsum(ln, out=new_off[1:])
+        flat = flat[np.repeat(offsets[keep] - new_off[:-1], ln)
+                    + np.arange(new_off[-1], dtype=np.int64)]
+        offsets = new_off
+        tweaks_scan = tweaks[keep]
+        row_indices = keep
+    else:
+        tweaks_scan = tweaks
+
+    sched, spend, labels, _ = ingest.pack_query_keys(
+        scan_private_key, spend_public_key, label_keys)
+
+    def pow2_at_least(v, lo=128):
+        p = lo
+        while p < v:
+            p *= 2
+        return p
+
+    tile = TILE_CUDA if dev.type == "cuda" else TILE_CPU
+    n_scan = tweaks_scan.shape[0]
+    eff_batch = max(cfg.block_rows,
+                    min(pow2_at_least(cfg.batch_size),
+                        pow2_at_least(max(n_scan, 1)), tile))
+    # adaptive outputs width: never wider than the data needs, at most 30;
+    # longer lists split into virtual rows
+    lens = offsets[1:] - offsets[:-1]
+    max_out = int(min(cfg.max_outputs, MAX_OUTPUTS_CAP,
+                      max(int(lens.max()) if n_scan else 1, 1)))
+    pack_time = [0.0]
+    batches = ingest.iter_packed(tweaks_scan, flat, offsets,
+                                 batch_size=eff_batch, max_outputs=max_out,
+                                 row_indices=row_indices,
+                                 pack_seconds=pack_time)
+    if metrics is not None:
+        metrics.rows_in = n
+        metrics.batch_size = eff_batch
+    executor = BatchExecutor(dev, block_rows=cfg.block_rows,
+                             wire=UPLOADS[cfg.upload])
+    results = executor.run(batches, sched, spend, labels, metrics=metrics)
+
+    matched: List[np.ndarray] = []
+    rows_scanned = 0
+    for flags, sources in results:
+        rows_scanned += int((sources >= 0).sum())
+        matched.append(sources[flags & (sources >= 0)])
+    # unique and in input order: a split row can match in several parts
+    idx = (np.unique(np.concatenate(matched)) if matched
+           else np.zeros(0, np.int64))
+
+    def take(name):
+        if name not in cols:
+            return None
+        col = cols[name]
+        if isinstance(col, np.ndarray):
+            return col[idx]
+        if isinstance(col, (list, tuple)):
+            # object array: an 'S' array would strip trailing NUL bytes
+            arr = np.empty(len(col), object)
+            arr[:] = col
+            return arr[idx]
+        return np.asarray(col)[idx]
+
+    if metrics is not None:
+        metrics.rows_scanned = rows_scanned
+        metrics.pack_seconds += pack_time[0]
+        metrics.matches = len(idx)
+        metrics.total_seconds = timer.lap()
+    return ScanResult(
+        indices=idx, txid=take("txid"), height=take("height"),
+        tweak_key=tweaks[idx] if len(idx) else np.zeros((0, 64), np.uint8),
+        metrics=metrics)

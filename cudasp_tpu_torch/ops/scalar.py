@@ -1,0 +1,101 @@
+"""Host-side (numpy) scalar schedules and the fixed-base comb table:
+counterparts of cudasp_tpu/ops/scalar.py:88-193 and :350-383.
+
+  * glv_split / glv_odd_sched: the scan key as two GLV half-scalars, each
+    recoded into 32 all-nonzero odd radix-16 digits plus a parity
+    correction, so the per-row ladder needs no zero-skip and no infinity
+    tracking. The schedule is shared by every row.
+  * comb_table_np: t x G for per-row hash scalars t as 32 table reads, one
+    per byte of t: entry [i, b] = b * 2^(8*(31-i)) * G (entry 0 = infinity,
+    stored as (0, 0)).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..oracle import ec as O
+from . import field as F
+
+# secp256k1 GLV endomorphism: lambda*(x, y) = (beta*x, y)
+GLV_LAMBDA = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
+GLV_BETA = 0x7AE96A2B657C07106E64479EAC3434E99CF0497512F58995C1396C28719501EE
+_G1A = 0x3086D221A7D46BCDE86C90E49284EB15
+_G1B = -0xE4437ED6010E88286F547FA90ABFE4C3
+_G2A = 0x114CA50F7A8E2F3F657C1108D9D44CFD8
+_G2B = _G1A
+
+ODD_WINDOWS = 32          # 128 signed bits / 4 per window
+COMB_WINDOWS = 32         # one window per byte of t
+
+
+def glv_split(k: int):
+    """k (mod n) -> (|k1|, k1 < 0, |k2|, k2 < 0) with k == k1 + k2*lambda
+    (mod n) and |k1|, |k2| < 2^128 (round-to-nearest lattice reduction)."""
+    n = O.N
+    k = k % n
+
+    def rounded_div(a, b):
+        return (a + b // 2) // b
+
+    c1 = rounded_div(_G2B * k, n)
+    c2 = rounded_div(-_G1B * k, n)
+    k2 = -c1 * _G1B - c2 * _G2B
+    k1 = (k - k2 * GLV_LAMBDA) % n
+    if k1 > n // 2:
+        k1 -= n
+    if (k1 + k2 * GLV_LAMBDA) % n != k or max(abs(k1), abs(k2)) >= 2**128:
+        raise ArithmeticError("GLV split out of range")
+    return abs(k1), k1 < 0, abs(k2), k2 < 0
+
+
+def glv_odd_sched(k: int) -> np.ndarray:
+    """(2, 34) int32 odd-digit ladder schedule, one row per GLV half.
+
+    Cols 0..31, most significant first: idx | sign << 3, where the digit is
+    sign * (2*idx + 1). Col 32: correction flag e (the half was recoded as
+    K + e to make it odd). Col 33: the y plane of the correction add
+    (0 = +y, 1 = -y), which subtracts e*P again."""
+    a1, n1, a2, n2 = glv_split(k)
+    out = np.zeros((2, ODD_WINDOWS + 2), dtype=np.int32)
+    for h, (a, neg) in enumerate(((a1, n1), (a2, n2))):
+        e = 0 if (a & 1) else 1
+        kp = a + e
+        half = (kp + (1 << 128) - 1) // 2
+        digs = []
+        for i in range(ODD_WINDOWS):
+            d = 0
+            for j in range(4):
+                bit = (half >> (4 * i + j)) & 1
+                d += (2 * bit - 1) << j
+            digs.append(d)
+        if sum(dd << (4 * i) for i, dd in enumerate(digs)) != kp:
+            raise ArithmeticError("odd-digit recoding failed")
+        for i, d in enumerate(digs[::-1]):
+            if neg:
+                d = -d
+            out[h, i] = ((abs(d) - 1) // 2) | ((1 if d < 0 else 0) << 3)
+        out[h, ODD_WINDOWS] = e
+        out[h, ODD_WINDOWS + 1] = 0 if neg else 1
+    return out
+
+
+_comb_cache = []
+
+
+def comb_table_np() -> np.ndarray:
+    """(32, 256, 2, 8) uint32 comb table in kernel words: [i, b, 0] = x and
+    [i, b, 1] = y of b * 2^(8*(31-i)) * G; entry b = 0 is (0, 0). Built
+    from the oracle on first use (about 0.2 s) and kept in memory."""
+    if not _comb_cache:
+        out = np.zeros((COMB_WINDOWS, 256, 2, F.NWORDS), np.uint32)
+        g = (O.GX, O.GY)
+        for i in range(COMB_WINDOWS):
+            base = O.ec_mul(g, 1 << (8 * (COMB_WINDOWS - 1 - i)))
+            acc = None
+            for b in range(1, 256):
+                acc = O.ec_add(acc, base)
+                out[i, b, 0] = F.int_to_words(acc[0])
+                out[i, b, 1] = F.int_to_words(acc[1])
+        _comb_cache.append(out)
+    return _comb_cache[0]

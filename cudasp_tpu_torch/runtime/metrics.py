@@ -1,0 +1,56 @@
+"""Structured scan metrics (counterpart of cudasp_tpu/runtime/metrics.py)."""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict
+
+
+@dataclass
+class ScanMetrics:
+    rows_in: int = 0
+    rows_scanned: int = 0          # virtual rows incl. overflow splits
+    batches: int = 0
+    matches: int = 0
+    batch_size: int = 0
+    n_devices: int = 1
+    upload_mode: str = ""          # "full" (x + parity bit) or "full64"
+    # Stage attribution. pack runs on the host between launches and
+    # overlaps the device, so the stages do not sum to total_seconds; the
+    # larger of pack + upload and device_wait names the bottleneck.
+    pack_seconds: float = 0.0          # host ingest + plane packing
+    upload_bytes: int = 0              # H2D bytes (planes + blockmask)
+    upload_seconds: float = 0.0        # host time staging into pinned
+    device_wait_seconds: float = 0.0   # host blocked on batch results
+    device_seconds: float = 0.0        # the executor's whole run
+    total_seconds: float = 0.0
+
+    @property
+    def bottleneck(self) -> str:
+        host = self.pack_seconds + self.upload_seconds
+        if not (host or self.device_wait_seconds):
+            return "unknown"
+        return ("host(pack+upload)" if host > self.device_wait_seconds
+                else "device")
+
+    @property
+    def rows_per_second(self) -> float:
+        return self.rows_in / self.total_seconds if self.total_seconds else 0.0
+
+    def as_dict(self) -> Dict:
+        d = dict(self.__dict__)
+        d["rows_per_second"] = self.rows_per_second
+        d["bottleneck"] = self.bottleneck
+        return d
+
+
+class Timer:
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def lap(self) -> float:
+        now = time.perf_counter()
+        dt = now - self.t0
+        self.t0 = now
+        return dt

@@ -1,0 +1,190 @@
+"""The CUDA kernel's own arithmetic, checked on the host: csrc/secp256k1.cuh
+built with g++ (host_check.cpp, no CUDA) into a temporary directory and
+called through ctypes. scan_row() must give the golden flags on both
+wires and the oracle's flags on random rows; the field ops must be exact
+on edge values. This is the one check of the kernel's code that runs
+before a card does."""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from cudasp_tpu_torch.io import ingest as TI
+from cudasp_tpu_torch.ops import field as TF
+from cudasp_tpu_torch.ops import kernels as TK
+from cudasp_tpu_torch.ops import scalar as TS
+from cudasp_tpu_torch.oracle import ec as O
+from cudasp_tpu_torch.oracle import encoding as E
+from cudasp_tpu_torch.oracle import pipeline as PIPE
+from cudasp_tpu_torch.oracle import vectors as V
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "cudasp_tpu_torch", "csrc")
+P = O.P
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; torch's default
+    of one thread per core in each of them oversubscribes the machine
+    (measured: 5x slower for these files), and these tensors are small."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to build the kernel's host check"
+    so = tmp_path_factory.mktemp("hostbuild") / "libhostcheck.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
+                    "-Werror", "-o", str(so),
+                    os.path.join(CSRC, "host_check.cpp")], check=True,
+                   capture_output=True, timeout=120)
+    lib = ctypes.CDLL(str(so))
+    vp = ctypes.c_void_p
+    for name in ("sp_fe_mul", "sp_fe_add", "sp_fe_sub"):
+        getattr(lib, name).argtypes = [vp, vp, vp]
+    for name in ("sp_fe_inv", "sp_fe_sqrt", "sp_fe_canon"):
+        getattr(lib, name).argtypes = [vp, vp]
+    lib.sp_scan_rows.argtypes = [vp] * 7 + [ctypes.c_int, vp] + [
+        ctypes.c_int] * 3 + [vp]
+    for fn in (lib.sp_fe_mul, lib.sp_fe_inv, lib.sp_scan_rows):
+        fn.restype = None
+    return lib
+
+
+EDGES = [0, 1, 2, 977, P - 1, P, P + 1, 2**256 - 1, 2**256 - 2**32,
+         2**255, (P + 1) // 2]
+
+
+def _call(fn, *vals):
+    args = [np.ascontiguousarray(TF.int_to_words(v)) for v in vals]
+    out = np.zeros(8, np.uint32)
+    fn(*(a.ctypes.data for a in args), out.ctypes.data)
+    return TF.words_to_int(out)
+
+
+def _edge_values(seed):
+    rng = np.random.default_rng(seed)
+    return EDGES + [int.from_bytes(rng.bytes(32), "big") for _ in range(6)]
+
+
+def test_field_ops_exact_on_edges(lib):
+    vals = _edge_values(1)
+    for a in vals:
+        for b in vals:
+            assert _call(lib.sp_fe_mul, a, b) % P == a * b % P
+            assert _call(lib.sp_fe_add, a, b) % P == (a + b) % P
+            assert _call(lib.sp_fe_sub, a, b) % P == (a - b) % P
+        assert _call(lib.sp_fe_canon, a) == a % P
+        assert _call(lib.sp_fe_inv, a) % P == pow(a, P - 2, P)
+        assert _call(lib.sp_fe_sqrt, a) % P == pow(a, (P + 1) // 4, P)
+
+
+def _scan_rows(lib, blobs, outputs, key, spend, labels, wire,
+               valid=None):
+    """Host scan_row over the rows; returns (flags, plain flags)."""
+    flat = np.concatenate([np.asarray(o, np.int64) for o in outputs])
+    offs = np.cumsum([0] + [len(o) for o in outputs]).astype(np.int64)
+    M = max(len(o) for o in outputs)
+    b = next(TI.iter_packed(blobs, flat, offs, len(blobs), M))
+    row_valid = b.row_valid if valid is None else valid
+    planes = [np.ascontiguousarray(p) for p in TK.pack_batch_arrays(
+        b.tweak_blobs, row_valid, b.outputs_hi, b.outputs_lo,
+        b.outputs_valid, block_rows=32, wire=wire)]
+    sched, sp, lab, nl = TI.pack_query_keys(key, spend, labels)
+    lab_c = np.ascontiguousarray(lab if nl else np.zeros((1, 2, 8),
+                                                         np.uint32))
+    comb = TS.comb_table_np()
+    width = planes[0].shape[1]
+    flags = np.zeros(width, np.int8)
+    tw, oh, ol, ovm = planes
+    lib.sp_scan_rows(tw.ctypes.data, oh.ctypes.data, ol.ctypes.data,
+                     ovm.ctypes.data, sched.ctypes.data, sp.ctypes.data,
+                     lab_c.ctypes.data, nl, comb.ctypes.data, width, M,
+                     1 if wire == "xy" else 0, flags.ctypes.data)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+    plain = TK.scan_plain(*(t(p) for p in planes), sched, t(sp), t(lab),
+                          TK.comb_table("cpu"), wire=wire, block_rows=32)
+    return flags[:len(blobs)] != 0, plain[0, :len(blobs)].numpy() != 0
+
+
+@pytest.mark.parametrize("wire", ["x", "xy"])
+def test_scan_row_golden(lib, wire):
+    for case in V.CASES:
+        blobs = np.stack([np.frombuffer(r.tweak_blob, np.uint8)
+                          for r in case.rows])
+        got, _ = _scan_rows(lib, blobs, [r.outputs for r in case.rows],
+                            case.scan_key_blob, case.spend_blob,
+                            case.label_blobs, wire)
+        want = [r.height in case.expected_heights for r in case.rows]
+        assert got.tolist() == want, case.name
+
+
+@pytest.mark.parametrize("wire", ["x", "xy"])
+def test_scan_row_random_rows_against_oracle(lib, wire):
+    rng = np.random.default_rng(5 if wire == "x" else 6)
+    g = (O.GX, O.GY)
+    key = int.from_bytes(rng.bytes(32), "big") % O.N
+    spend = O.ec_mul(g, int(rng.integers(1, 2**62)))
+    label = O.ec_mul(g, int(rng.integers(1, 2**62)))
+    pts = [O.ec_mul(g, int(k)) for k in rng.integers(1, 2**62, size=8)]
+    cands = [PIPE.candidate_values(p, key, spend, [label]) for p in pts]
+    pick = rng.integers(0, 8, size=64)
+    outputs = []
+    for j in pick:
+        outs = [int(v) for v in rng.integers(-2**62, 2**62, size=3)]
+        r = rng.random()
+        if r < 0.2:
+            outs[int(rng.integers(0, 3))] = cands[j][0]      # base match
+        elif r < 0.35:
+            outs[int(rng.integers(0, 3))] = cands[j][1]      # label match
+        outputs.append(outs)
+    blobs = np.stack([np.frombuffer(E.point_to_blob64(pts[j]), np.uint8)
+                      for j in pick])
+    valid = np.ones(64, bool)
+    valid[7] = False                               # a padding row flags 0
+    got, plain = _scan_rows(lib, blobs, outputs, E.scalar_to_blob32(key),
+                            E.point_to_blob64(spend),
+                            [E.point_to_blob64(label)], wire, valid)
+    want = np.array([PIPE.scan_row(pts[j], key, spend, o, [label])
+                     for j, o in zip(pick, outputs)]) & valid
+    assert 5 < want.sum() < 40
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(plain, want)
+
+
+def test_scan_row_dead_candidate_and_invalid_y(lib):
+    """The final point at infinity never matches, even against output 0;
+    on the x wire an invalid y with the right parity still scans as the
+    on-curve point, on the xy wire it does not."""
+    case = V.CASES[0]
+    row = case.rows[0]
+    tweak = E.blob64_to_point(row.tweak_blob)
+    key = E.blob32_to_scalar(case.scan_key_blob)
+    t = int.from_bytes(PIPE.shared_secret_hash(O.ec_mul(tweak, key)), "big")
+    spend = O.ec_neg(O.ec_mul((O.GX, O.GY), t % O.N))
+    blob = np.frombuffer(row.tweak_blob, np.uint8)[None]
+    for wire in ("x", "xy"):
+        got, plain = _scan_rows(lib, blob, [[0, 5]], case.scan_key_blob,
+                                E.point_to_blob64(spend), (), wire)
+        assert got.tolist() == plain.tolist() == [False]
+    x, y = tweak
+    bad = np.frombuffer(E.point_to_blob64((x, (y + 2) % 2**256)),
+                        np.uint8)[None]
+    for wire, want in (("x", True), ("xy", False)):
+        got, plain = _scan_rows(lib, bad, [list(row.outputs)],
+                                case.scan_key_blob, case.spend_blob, (),
+                                wire)
+        assert got.tolist() == plain.tolist() == [want]
