@@ -11,6 +11,7 @@ version."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -19,6 +20,7 @@ import torch
 
 from .io import ingest
 from .runtime.errors import BindError, IngestError
+from .ops.kernels import LADDERS
 from .runtime.executor import BatchExecutor
 from .runtime.metrics import ScanMetrics, Timer
 
@@ -40,6 +42,17 @@ class ScanConfig:
     # "full": 32-byte x + parity bit per row, the kernel recovers y;
     # "full64": the 64-byte point, the kernel skips that square root
     upload: str = "full"
+    # The scan key's ladder: "fixed" (odd-digit windows, 64 adds) or
+    # "wnaf" (merged-GLV width-5 wNAF, ~43 adds); both read the key's
+    # schedule as data, so one build serves every key. "auto" = fixed;
+    # CUDASP_LADDER fills "auto" only (an explicit value wins).
+    ladder: str = "auto"
+    # static_key=True compiles the key's wNAF schedule into a kernel of
+    # its own (ladder "static": one nvcc build per key, about ten
+    # seconds, cached on disk under build/cudasp_tpu_torch/static/ and
+    # in the process): for a long-lived key over many rows. The cached
+    # library encodes the scan key. Overrides `ladder`.
+    static_key: bool = False
 
 
 @dataclass
@@ -119,6 +132,20 @@ def _table_columns(table) -> Dict[str, object]:
     raise IngestError(f"unsupported table type {type(table)}")
 
 
+def resolve_ladder(cfg: ScanConfig) -> str:
+    """The kernel ladder a config selects: static_key wins, then an
+    explicit ladder, then CUDASP_LADDER, then "fixed"."""
+    if cfg.static_key:
+        return "static"
+    ladder = (cfg.ladder if cfg.ladder != "auto"
+              else os.environ.get("CUDASP_LADDER", "auto"))
+    ladder = "fixed" if ladder == "auto" else ladder
+    if ladder not in LADDERS:
+        raise BindError(f"ladder must be 'auto' or one of {LADDERS}, got "
+                        f"{ladder!r}")
+    return ladder
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -167,6 +194,7 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
     if cfg.upload not in UPLOADS:
         raise BindError(f"upload must be one of {sorted(UPLOADS)}, got "
                         f"{cfg.upload!r}")
+    ladder = resolve_ladder(cfg)
     dev = _resolve_device(device)
 
     metrics = (ScanMetrics(batch_size=cfg.batch_size)
@@ -233,7 +261,7 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
         metrics.rows_in = n
         metrics.batch_size = eff_batch
     executor = BatchExecutor(dev, block_rows=cfg.block_rows,
-                             wire=UPLOADS[cfg.upload])
+                             wire=UPLOADS[cfg.upload], ladder=ladder)
     results = executor.run(batches, sched, spend, labels, metrics=metrics)
 
     matched: List[np.ndarray] = []

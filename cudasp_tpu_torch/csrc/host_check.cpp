@@ -1,8 +1,28 @@
 // Host build of secp256k1.cuh (g++, no CUDA): the kernel's own arithmetic,
 // callable through ctypes so the CPU tests can check it before any card
-// does. Same row layout as scan.cu: planes of B rows, word i of row r at
-// plane[i * B + r].
+// does. Same row layout as the kernel: planes of B rows, word i of row r
+// at plane[i * B + r].
+//
+// Built with -DSP_STATIC_TU='"<path>"' it also compiles a per-key static
+// translation unit written by ops/kernels.py (its KeyLadder) and exports
+// sp_scan_rows_static.
 #include "secp256k1.cuh"
+
+namespace {
+
+template <class Ladder>
+void host_rows(const Ladder& lad, const uint32_t* tw, const uint32_t* oh,
+               const uint32_t* ol, const uint32_t* ovm,
+               const uint32_t* spend, const uint32_t* labels, int nlabels,
+               const uint32_t* comb, int B, int M, int wire_xy,
+               int8_t* flags) {
+    for (int r = 0; r < B; r++)
+        flags[r] = (int8_t)sp::scan_row(tw + r, B, wire_xy, oh + r, ol + r,
+                                        M, ovm[r], lad, spend, labels,
+                                        nlabels, comb);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -36,19 +56,31 @@ void sp_fe_canon(const uint32_t* a, uint32_t* out) {
     for (int i = 0; i < 8; i++) out[i] = r.v[i];
 }
 
+// ladder: 0 = fixed, digits (2, 34); 1 = wnaf, digits (2, 54)
 void sp_scan_rows(const uint32_t* tw, const uint32_t* oh, const uint32_t* ol,
-                  const uint32_t* ovm, const int32_t* digits,
+                  const uint32_t* ovm, int ladder, const int32_t* digits,
                   const uint32_t* spend, const uint32_t* labels, int nlabels,
                   const uint32_t* comb, int B, int M, int wire_xy,
                   int8_t* flags) {
-    sp::Sched s;
-    for (int h = 0; h < 2; h++)
-        for (int i = 0; i < sp::SCHED_COLS; i++)
-            s.d[h][i] = (uint8_t)digits[h * sp::SCHED_COLS + i];
-    for (int r = 0; r < B; r++)
-        flags[r] = (int8_t)sp::scan_row(tw + r, B, wire_xy, oh + r, ol + r,
-                                        M, ovm[r], s, spend, labels, nlabels,
-                                        comb);
+    if (ladder == 1)
+        host_rows(sp::wnaf_ladder(digits), tw, oh, ol, ovm, spend, labels,
+                  nlabels, comb, B, M, wire_xy, flags);
+    else
+        host_rows(sp::fixed_ladder(digits), tw, oh, ol, ovm, spend, labels,
+                  nlabels, comb, B, M, wire_xy, flags);
 }
 
 }  // extern "C"
+
+#ifdef SP_STATIC_TU
+#include SP_STATIC_TU
+
+extern "C" void sp_scan_rows_static(
+    const uint32_t* tw, const uint32_t* oh, const uint32_t* ol,
+    const uint32_t* ovm, const uint32_t* spend, const uint32_t* labels,
+    int nlabels, const uint32_t* comb, int B, int M, int wire_xy,
+    int8_t* flags) {
+    host_rows(KeyLadder(), tw, oh, ol, ovm, spend, labels, nlabels, comb, B,
+              M, wire_xy, flags);
+}
+#endif

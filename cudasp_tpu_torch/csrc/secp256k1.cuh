@@ -6,6 +6,10 @@
 // Field elements are 8 little-endian uint32 words; products are 32x32->64
 // bit and reduce with 2^256 == 2^32 + 977 (mod p). Values stay below 2^256
 // but need not be below p; fe_canon() gives the unique representative.
+//
+// scan_row() takes the scan key's ladder as a functor: FixedLadder and
+// WnafLadder read the key's schedule as data; a per-key KeyLadder, which
+// ops/kernels.py generates, has it compiled in through ladder_static().
 #pragma once
 
 #include <stddef.h>
@@ -45,6 +49,7 @@ struct fe {
 
 static const int ODD_WINDOWS = 32;
 static const int SCHED_COLS = ODD_WINDOWS + 2;
+static const int WNAF_STEPS = 54;
 
 // The scan key's odd-digit ladder schedule (ops/scalar.py glv_odd_sched),
 // one row per GLV half: cols 0..31 = idx | sign << 3, col 32 = correction
@@ -52,6 +57,15 @@ static const int SCHED_COLS = ODD_WINDOWS + 2;
 // it by value as a launch parameter.
 struct Sched {
     uint8_t d[2][SCHED_COLS];
+};
+
+// The scan key's merged-GLV width-5 wNAF steps (ops/scalar.py
+// glv_wnaf_steps): step i doubles nd[i] times, then adds the table entry
+// that code[i] names. Code bits 0-2: odd-multiple index; 3: negate y;
+// 4: GLV half (beta x); 5: live add (0: no add). Passed by value too.
+struct WSched {
+    uint8_t nd[WNAF_STEPS];
+    uint8_t code[WNAF_STEPS];
 };
 
 SP_CONST uint32_t P_WORDS[8] = {0xFFFFFC2Fu, 0xFFFFFFFEu, 0xFFFFFFFFu,
@@ -428,7 +442,12 @@ SP_HD SP_INLINE void pick(const OddTable& t, int h, uint32_t code, fe& x,
                           fe& y) {
     int idx = code & 7;
     x = h ? t.bx[idx] : t.x[idx];
-    y = (code >> 3) ? fe_neg(t.y[idx]) : t.y[idx];
+    y = ((code >> 3) & 1u) ? fe_neg(t.y[idx]) : t.y[idx];
+}
+
+// a wNAF step's entry: the GLV half comes from the code's bit 4
+SP_HD SP_INLINE void pickw(const OddTable& t, uint32_t code, fe& x, fe& y) {
+    pick(t, (code >> 4) & 1u, code, x, y);
 }
 
 // Scan key x P over the shared odd-digit schedule: no zero digits, so no
@@ -459,6 +478,97 @@ SP_HD SP_INLINE jac ladder(const OddTable& t, const Sched& s) {
         }
     }
     return acc;
+}
+
+// Scan key x P over the data-driven wNAF steps. Every row of a launch
+// shares the schedule, so both branches are uniform across a warp.
+SP_HD SP_INLINE jac ladder_wnaf(const OddTable& t, const WSched& s) {
+    jac acc;
+    pickw(t, s.code[0], acc.x, acc.y);         // step 0: the init add
+    acc.z = fe_one();
+    SP_ROLLED
+    for (int i = 1; i < WNAF_STEPS; i++) {
+        uint32_t code = s.code[i];
+        SP_ROLLED
+        for (int k = 0; k < s.nd[i]; k++) acc = pt_dbl(acc);
+        if (code >> 5) {
+            fe qx, qy;
+            pickw(t, code, qx, qy);
+            acc = pt_madd(acc, qx, qy);
+        }
+    }
+    return acc;
+}
+
+// The per-key ladder: the same steps as template arguments, so doubling
+// runs are straight-line and every table index and sign is a constant.
+// Doublings and adds stay calls: inlined into ~170 steps they would
+// multiply ptxas time and the code size.
+template <int ND, int CODE>
+struct Step {};
+template <class... S>
+struct Steps {};
+
+SP_HD SP_NOINLINE jac pt_dbl_call(jac p) { return pt_dbl(p); }
+SP_HD SP_NOINLINE jac pt_madd_call(jac p, fe qx, fe qy) {
+    return pt_madd(p, qx, qy);
+}
+
+template <int ND, int CODE>
+SP_HD SP_INLINE void static_step(const OddTable& t, jac& acc,
+                                 Step<ND, CODE>) {
+    SP_UNROLL
+    for (int k = 0; k < ND; k++) acc = pt_dbl_call(acc);
+    if constexpr ((CODE >> 5) != 0) {
+        fe qx, qy;
+        pickw(t, CODE, qx, qy);
+        acc = pt_madd_call(acc, qx, qy);
+    }
+}
+
+template <int CODE0, class... S>
+SP_HD SP_INLINE jac ladder_static(const OddTable& t,
+                                  Steps<Step<0, CODE0>, S...>) {
+    static_assert((CODE0 >> 5) != 0, "step 0 must be a live add");
+    jac acc;
+    pickw(t, CODE0, acc.x, acc.y);
+    acc.z = fe_one();
+    (static_step(t, acc, S()), ...);
+    return acc;
+}
+
+// The ladders as the functors scan_row() takes
+struct FixedLadder {
+    Sched s;
+    SP_HD SP_INLINE jac operator()(const OddTable& t) const {
+        return ladder(t, s);
+    }
+};
+
+struct WnafLadder {
+    WSched s;
+    SP_HD SP_INLINE jac operator()(const OddTable& t) const {
+        return ladder_wnaf(t, s);
+    }
+};
+
+// The data-driven ladders from their int32 host schedules: (2, 34) odd
+// digits, or (2, 54) wNAF steps (row 0 doublings, row 1 codes)
+inline FixedLadder fixed_ladder(const int32_t* digits) {
+    FixedLadder f;
+    for (int h = 0; h < 2; h++)
+        for (int i = 0; i < SCHED_COLS; i++)
+            f.s.d[h][i] = (uint8_t)digits[h * SCHED_COLS + i];
+    return f;
+}
+
+inline WnafLadder wnaf_ladder(const int32_t* digits) {
+    WnafLadder w;
+    for (int i = 0; i < WNAF_STEPS; i++) {
+        w.s.nd[i] = (uint8_t)digits[i];
+        w.s.code[i] = (uint8_t)digits[WNAF_STEPS + i];
+    }
+    return w;
 }
 
 // t x G for the 32 hash bytes (most significant first), read straight
@@ -503,15 +613,17 @@ SP_HD SP_INLINE bool candidate_hits(const jac& c, const uint32_t* oh,
 }
 
 // The whole per-row function, raw tweak words to the match flag.
+//   lad: the scan key's ladder (FixedLadder, WnafLadder or a KeyLadder)
 //   tw: the row's tweak words, word i at tw[i * stride]: x (8 words), then
 //       y (8 words) when wire_xy
 //   oh/ol: the row's M upper-64 match words (hi, lo), stride apart
 //   ovm: bits 0..M-1 output valid, bit 30 y parity (x wire), bit 31 row
 //       valid
 //   spend: x words then y words; labels: nlabels x (x words, y words)
+template <class Ladder>
 SP_HD SP_INLINE int scan_row(const uint32_t* tw, int stride, int wire_xy,
                              const uint32_t* oh, const uint32_t* ol, int M,
-                             uint32_t ovm, const Sched& s,
+                             uint32_t ovm, const Ladder& lad,
                              const uint32_t* spend, const uint32_t* labels,
                              int nlabels, const uint32_t* comb) {
     if (!(ovm >> 31)) return 0;                 // padding row: flag 0
@@ -528,7 +640,7 @@ SP_HD SP_INLINE int scan_row(const uint32_t* tw, int stride, int wire_xy,
     }
     OddTable t;
     build_table(px, py, t);
-    jac e = ladder(t, s);
+    jac e = lad(t);
     // to affine (zero z inverts to zero), serialize, hash
     fe zi = fe_inv(e.z);
     fe zi2 = fe_sqr(zi);

@@ -143,13 +143,29 @@ def iter_packed(tweak_blobs: np.ndarray, outputs_flat: np.ndarray,
         yield batch
 
 
+@dataclass(frozen=True)
+class ScanSchedule:
+    """The scan key's ladder schedules (counterpart of the JAX package's
+    ScanSchedule, kernel ladders only)."""
+    odd: np.ndarray          # (2, 34) int32, the "fixed" ladder
+    wnaf: np.ndarray         # (2, 54) int32, the "wnaf" ladder
+    wnaf_static: tuple       # (nd, code) pairs, the per-key "static" build
+
+    def operands(self, ladder: str):
+        """(digits, static_sched) as scan_flags takes them for `ladder`."""
+        if ladder == "static":
+            return None, self.wnaf_static
+        return (self.wnaf if ladder == "wnaf" else self.odd), None
+
+
 def pack_query_keys(scan_key_blob: bytes, spend_blob: bytes,
                     label_blobs: Iterable[bytes]):
     """Per-query shared operands in kernel format:
-    (odd schedule (2, 34) int32, spend (2, 8) uint32 [x words, y words],
+    (ScanSchedule, spend (2, 8) uint32 [x words, y words],
     labels (L, 2, 8) uint32, L)."""
     k = blob32_to_scalar(bytes(scan_key_blob))
-    sched = S.glv_odd_sched(k)
+    sched = ScanSchedule(S.glv_odd_sched(k), S.glv_wnaf_steps(k),
+                         S.glv_wnaf_static(k))
     spend = np.stack([F.int_to_words(c)
                       for c in blob64_to_point(bytes(spend_blob))])
     labels = [blob64_to_point(bytes(lb)) for lb in label_blobs]

@@ -2,19 +2,24 @@
 the kernel's plain-torch version.
 
 Counterpart of cudasp_tpu/ops/kernels.py: `scan_flags` plays the role of
-`_scan_pallas_call` (ladder="fixed", wires "x" and "xy", block skip,
-int8 or 32-per-uint32 packed flags). For CUDA tensors it launches the
-hand-written kernel in csrc/scan.cu (built with nvcc for sm_90a at first
-use, bound with ctypes); for CPU tensors it runs `scan_plain`, which
-follows the stage split of cudasp_tpu/ops/pipeline.py. It never falls
-back from one to the other.
+`_scan_pallas_call` (ladders "fixed", "wnaf" and "static", wires "x" and
+"xy", block skip, int8 or 32-per-uint32 packed flags). For CUDA tensors
+it launches the hand-written kernel (csrc/scan.cuh; built with nvcc for
+sm_90a at first use, bound with ctypes): csrc/scan.cu for the ladders that
+read the key's schedule as data, a generated translation unit per scan
+key for "static". For CPU tensors it runs `scan_plain`, which follows the
+stage split of cudasp_tpu/ops/pipeline.py. It never falls back from one
+to the other.
 
 Operands (B = lane width, a multiple of block_rows):
   tweak_words (8 or 16, B) int32  LE x words (then y words on wire "xy")
   outputs_hi/lo (M, B) int32      upper-64 match words
   outputs_mask (1, B) int32       bit j < M: output j valid; bit 30: y
                                   parity (wire "x"); bit 31: row valid
-  digits (2, 34) int32            host array: glv_odd_sched of the scan key
+  digits                          host array: glv_odd_sched (2, 34) int32
+                                  for "fixed", glv_wnaf_steps (2, 54) int32
+                                  for "wnaf"; unused by "static"
+  static_sched                    glv_wnaf_static of the key ("static")
   spend (2, 8) int32              x words, y words
   labels (L, 2, 8) int32
   comb (32, 256, 2, 8) int32      comb_table_np
@@ -25,9 +30,11 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -36,7 +43,7 @@ import torch
 from . import curve as C
 from . import field as F
 from . import sha256 as H
-from .scalar import GLV_BETA, ODD_WINDOWS, comb_table_np
+from .scalar import GLV_BETA, ODD_WINDOWS, WNAF_STEPS, comb_table_np
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(
@@ -45,6 +52,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_TIMEOUT_S = 600
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+LADDERS = ("fixed", "wnaf", "static")
+DIGITS_SHAPES = {"fixed": (2, ODD_WINDOWS + 2), "wnaf": (2, WNAF_STEPS)}
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +139,11 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & 0xFFFFFFFF
 
 
-def stage_ecdh(tweak_words, ovm, digits, wire):
-    """Tweak words -> scan key x tweak point (Jacobian, (B, 16) each)."""
+def stage_ecdh(tweak_words, ovm, digits, wire, ladder="fixed",
+               static_sched=None):
+    """Tweak words -> scan key x tweak point (Jacobian, (B, 16) each), by
+    the ladder's schedule: `digits` for "fixed" and "wnaf", static_sched
+    for "static"."""
     x = F.words_to_fe(tweak_words[:8].T)
     if wire == "xy":
         y = F.words_to_fe(tweak_words[8:16].T)
@@ -160,17 +172,33 @@ def stage_ecdh(tweak_words, ovm, digits, wire):
     tabx = (tx, [F.mul(beta, v) for v in tx])
     taby = (ty, [F.neg(v) for v in ty])
 
-    def pick(h, i):
-        code = int(digits[h][i])
-        return tabx[h][code & 7], taby[code >> 3][code & 7]
+    def pick(h, code):
+        code = int(code)
+        return tabx[h][code & 7], taby[(code >> 3) & 1][code & 7]
 
-    px, py = pick(0, 0)
-    px, py, pz = C.madd(px, py, one, *pick(1, 0))
+    if ladder != "fixed":
+        # wNAF steps (nd, code): nd doublings, then a live add (bit 5) of
+        # the entry named by the code, GLV half in bit 4. Step 0 is the
+        # init add; the static schedule is the same steps, trimmed.
+        steps = (static_sched if ladder == "static"
+                 else list(zip(digits[0], digits[1])))
+        code0 = int(steps[0][1])
+        px, py = pick((code0 >> 4) & 1, code0)
+        pz = one
+        for nd, code in steps[1:]:
+            for _ in range(int(nd)):
+                px, py, pz = C.dbl(px, py, pz)
+            if int(code) >> 5:
+                px, py, pz = C.madd(px, py, pz,
+                                    *pick((int(code) >> 4) & 1, code))
+        return px, py, pz
+    px, py = pick(0, digits[0][0])
+    px, py, pz = C.madd(px, py, one, *pick(1, digits[1][0]))
     for i in range(1, ODD_WINDOWS):
         for _ in range(4):
             px, py, pz = C.dbl(px, py, pz)
         for h in range(2):
-            px, py, pz = C.madd(px, py, pz, *pick(h, i))
+            px, py, pz = C.madd(px, py, pz, *pick(h, digits[h][i]))
     for h in range(2):
         if digits[h][ODD_WINDOWS]:
             cy = taby[int(digits[h][ODD_WINDOWS + 1])][0]
@@ -231,10 +259,12 @@ def stage_match(fx, fy, fz, oh, ol, ovm, labels):
 
 def scan_plain(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
                spend, labels, comb, blockmask=None, *, wire="x",
-               block_rows=256):
+               block_rows=256, ladder="fixed", static_sched=None):
     """The kernel's function in plain torch: (1, B) int8 flags."""
-    d = np.asarray(torch.as_tensor(digits).cpu(), np.int32)
-    ex, ey, ez = stage_ecdh(tweak_words, outputs_mask, d, wire)
+    d = (None if digits is None
+         else np.asarray(torch.as_tensor(digits).cpu(), np.int32))
+    ex, ey, ez = stage_ecdh(tweak_words, outputs_mask, d, wire, ladder,
+                            static_sched)
     hw = stage_serialize_hash(ex, ey, ez)
     fx, fy, fz = stage_output_final(hw, spend, comb)
     hit = stage_match(fx, fy, fz, outputs_hi, outputs_lo, outputs_mask,
@@ -249,72 +279,207 @@ def scan_plain(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_SOURCES = ("scan.cu", "secp256k1.cuh")
+_SOURCES = ("scan.cu", "scan.cuh", "secp256k1.cuh")
+_HEADERS = ("scan.cuh", "secp256k1.cuh")
+_LADDER_IDS = {"fixed": 0, "wnaf": 1}
+STATIC_GENERATOR_VERSION = 1
+
+_STATIC_TU = """\
+// Generated by cudasp_tpu_torch/ops/kernels.py (static ladder generator
+// v{version}, schedule digest {digest}): the scan kernel with one scan
+// key's wNAF schedule compiled in. The schedule re-encodes the scan key,
+// so this file and the library built from it are secret.
+#include "scan.cuh"
+
+struct KeyLadder {{
+    SP_HD SP_INLINE sp::jac operator()(const sp::OddTable& t) const {{
+        return sp::ladder_static(t, sp::Steps<
+{steps}>());
+    }}
+}};
+
+#ifdef __CUDACC__
+extern "C" int cudasp_scan_static_launch(
+    const uint32_t* tw, const uint32_t* oh, const uint32_t* ol,
+    const uint32_t* ovm, const uint32_t* spend, const uint32_t* labels,
+    int nlabels, const uint32_t* comb, const int32_t* blockmask,
+    int block_rows, int B, int M, int wire_xy, int packed, void* flags,
+    void* stream) {{
+    return sp::launch_scan(KeyLadder(), tw, oh, ol, ovm, spend, labels,
+                           nlabels, comb, blockmask, block_rows, B, M,
+                           wire_xy, packed, flags, stream);
+}}
+#endif
+"""
+
+
+def check_static_sched(static_sched) -> tuple:
+    """A glv_wnaf_static schedule as a tuple of (nd, code) int pairs, or
+    ValueError. It becomes C++ template arguments, so it is held to what
+    the generator can emit: at most WNAF_STEPS steps, step 0 a live add
+    with no doubling, nd in 0..255, code in 0..63."""
+    try:
+        steps = tuple((operator.index(nd), operator.index(code))
+                      for nd, code in static_sched)
+    except (TypeError, ValueError) as e:
+        raise ValueError("static_sched must be (nd, code) integer pairs "
+                         "(scalar.glv_wnaf_static)") from e
+    if not 0 < len(steps) <= WNAF_STEPS or steps[0][0] != 0 \
+            or not steps[0][1] >> 5 \
+            or any(not (0 <= nd < 256 and 0 <= code < 64)
+                   for nd, code in steps):
+        raise ValueError("static_sched is not a glv_wnaf_static schedule")
+    return steps
+
+
+def _hash_sources(h, names):
+    for name in names:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    return h
+
+
+def static_digest(static_sched) -> str:
+    """Names a per-key library: sha256 over the headers, the nvcc flags,
+    the generator version and the schedule. It is the only form in which
+    the schedule appears in logs and paths."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(f"generator {STATIC_GENERATOR_VERSION}".encode())
+    h.update(repr(check_static_sched(static_sched)).encode())
+    return _hash_sources(h, _HEADERS).hexdigest()[:16]
+
+
+def static_source(static_sched) -> str:
+    """The translation unit of one key's static kernel (scan.cuh's kernel
+    with the key's steps as template arguments). Secret, like the key."""
+    steps = check_static_sched(static_sched)
+    cells = [f"sp::Step<{nd}, {code}>" for nd, code in steps]
+    lines = [", ".join(cells[i:i + 4]) for i in range(0, len(cells), 4)]
+    return _STATIC_TU.format(version=STATIC_GENERATOR_VERSION,
+                             digest=static_digest(steps),
+                             steps=",\n".join("            " + ln
+                                               for ln in lines))
+
+
+def _private_dir(path):
+    os.makedirs(path, mode=0o700, exist_ok=True)
+    os.chmod(path, 0o700)
+
+
+def _redact(log: str) -> str:
+    """A static build's log without the lines that quote its steps."""
+    return "\n".join(ln for ln in log.splitlines()
+                     if "Step<" not in ln and "StepIL" not in ln)
 
 
 class ScanKernel:
-    """csrc/scan.cu, built at first use with nvcc into
-    build/cudasp_tpu_torch/<source hash>/ and reused while the hash
-    matches. `launches` counts kernel launches; `build_seconds` is the
-    nvcc time of this process's build (None when a build was reused)."""
+    """One ladder of the scan kernel, built at first use with nvcc and
+    bound with ctypes. "fixed" and "wnaf" are two instantiations in one
+    library, csrc/scan.cu, built into build/cudasp_tpu_torch/<source
+    hash>/. "static" builds one library per scan key from a generated
+    translation unit into build/cudasp_tpu_torch/static/<digest>/, mode
+    0o700 because the library encodes the scan key; the generated source
+    is written 0o600 and deleted once nvcc has read it. A library on disk
+    is reused while its hash matches; a loaded one is kept for the life
+    of the object, so a second scan with the same key builds nothing.
 
-    def __init__(self):
+    launches: kernel launches of this ladder. nvcc_runs, build_seconds,
+    build_log: this object's nvcc builds (the last one's seconds and
+    ptxas log; None and "" while every library was found built)."""
+
+    def __init__(self, ladder: str):
+        if ladder not in LADDERS:
+            raise ValueError(f"ladder must be one of {LADDERS}")
+        self.ladder = ladder
         self.launches = 0
+        self.nvcc_runs = 0
         self.build_seconds = None
         self.build_log = ""
-        self._lib = None
+        self._libs = {}
+        self._lock = threading.Lock()
 
-    def _digest(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for name in _SOURCES:
-            with open(os.path.join(_CSRC, name), "rb") as f:
-                h.update(f.read())
-        return h.hexdigest()[:16]
-
-    def library(self):
-        if self._lib is not None:
-            return self._lib
-        out_dir = os.path.join(_BUILD_ROOT, self._digest())
-        so = os.path.join(out_dir, "libcudasp_scan.so")
+    def library(self, static_sched=None):
+        steps = None
+        if self.ladder == "static":
+            if static_sched is None:
+                raise ValueError("ladder='static' needs static_sched")
+            steps = check_static_sched(static_sched)
+        with self._lock:
+            lib = self._libs.get(steps)
+        if lib is not None:
+            return lib
+        if steps is None:
+            digest = _hash_sources(hashlib.sha256(
+                " ".join(NVCC_FLAGS).encode()), _SOURCES).hexdigest()[:16]
+            out_dir = os.path.join(_BUILD_ROOT, digest)
+            so = os.path.join(out_dir, "libcudasp_scan.so")
+        else:
+            out_dir = os.path.join(_BUILD_ROOT, "static",
+                                   static_digest(steps))
+            so = os.path.join(out_dir, "libcudasp_scan_static.so")
         if not os.path.exists(so):
-            nvcc = shutil.which("nvcc") or NVCC_DEFAULT
-            if not os.path.exists(nvcc):
-                raise RuntimeError("nvcc not found: the scan kernel is "
-                                   "built with the CUDA toolkit's nvcc")
-            os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp,
-                 os.path.join(_CSRC, "scan.cu")],
-                capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{self.build_log}")
-            with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
-                f.write(self.build_log)
-            os.replace(tmp, so)
+            self._build(out_dir, so, steps)
         lib = ctypes.CDLL(so)
-        fn = lib.cudasp_scan_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 2)
-        self._lib = lib
-        return lib
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        tail = [vp, vp, ci, vp, vp] + [ci] * 5 + [vp, vp]
+        if steps is None:
+            fn = lib.cudasp_scan_launch
+            fn.argtypes = [vp] * 4 + [ci, vp] + tail
+        else:
+            fn = lib.cudasp_scan_static_launch
+            fn.argtypes = [vp] * 4 + tail
+        fn.restype = ci
+        with self._lock:
+            return self._libs.setdefault(steps, lib)
+
+    def _build(self, out_dir, so, steps):
+        nvcc = shutil.which("nvcc") or NVCC_DEFAULT
+        if not os.path.exists(nvcc):
+            raise RuntimeError("nvcc not found: the scan kernel is "
+                               "built with the CUDA toolkit's nvcc")
+        tag = f"{os.getpid()}.{threading.get_ident()}"
+        if steps is None:
+            os.makedirs(out_dir, exist_ok=True)
+            src = os.path.join(_CSRC, "scan.cu")
+        else:
+            _private_dir(os.path.dirname(out_dir))
+            _private_dir(out_dir)
+            src = os.path.join(out_dir, f"key.{tag}.cu")
+            fd = os.open(src, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+            with os.fdopen(fd, "w") as f:
+                f.write(static_source(steps))
+        tmp = f"{so}.{tag}.tmp"
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, src],
+                capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+        finally:
+            if steps is not None:
+                os.remove(src)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if steps is not None:
+            log = _redact(log)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+            f.write(log)
+        os.replace(tmp, so)
+        with self._lock:
+            self.nvcc_runs += 1
+            self.build_seconds = seconds
+            self.build_log = log
 
     def launch(self, tweak_words, outputs_hi, outputs_lo, outputs_mask,
-               digits, spend, labels, comb, blockmask, *, wire, block_rows,
-               pack_flags):
+               digits, static_sched, spend, labels, comb, blockmask, *,
+               wire, block_rows, pack_flags):
+        """digits: the checked host schedule (None for "static")."""
         B = tweak_words.shape[1]
         M = outputs_hi.shape[0]
         dev = tweak_words.device
-        d = np.ascontiguousarray(np.asarray(
-            torch.as_tensor(digits).cpu(), np.int32))
-        if d.shape != (2, ODD_WINDOWS + 2):
-            raise ValueError(f"digits must be (2, 34), got {d.shape}")
         tensors = {"tweak_words": tweak_words, "outputs_hi": outputs_hi,
                    "outputs_lo": outputs_lo, "outputs_mask": outputs_mask,
                    "spend": spend, "labels": labels, "comb": comb}
@@ -332,33 +497,54 @@ class ScanKernel:
         flags = (torch.empty((1, B // 32), dtype=torch.int32, device=dev)
                  if pack_flags else
                  torch.empty((1, B), dtype=torch.int8, device=dev))
-        lib = self.library()
+        lib = self.library(static_sched)
+        rows = (tweak_words.data_ptr(), outputs_hi.data_ptr(),
+                outputs_lo.data_ptr(), outputs_mask.data_ptr())
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.cudasp_scan_launch(
-                tweak_words.data_ptr(), outputs_hi.data_ptr(),
-                outputs_lo.data_ptr(), outputs_mask.data_ptr(),
-                d.ctypes.data, spend.data_ptr(),
-                labels.data_ptr() if labels.numel() else None,
-                labels.shape[0], comb.data_ptr(),
-                blockmask.data_ptr() if blockmask is not None else None,
-                block_rows, B, M, 1 if wire == "xy" else 0,
-                1 if pack_flags else 0, flags.data_ptr(), stream)
+            tail = (spend.data_ptr(),
+                    labels.data_ptr() if labels.numel() else None,
+                    labels.shape[0], comb.data_ptr(),
+                    blockmask.data_ptr() if blockmask is not None else None,
+                    block_rows, B, M, 1 if wire == "xy" else 0,
+                    1 if pack_flags else 0, flags.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+            if self.ladder == "static":
+                rc = lib.cudasp_scan_static_launch(*rows, *tail)
+            else:
+                rc = lib.cudasp_scan_launch(*rows, _LADDER_IDS[self.ladder],
+                                            digits.ctypes.data, *tail)
         if rc != 0:
-            raise RuntimeError(f"scan kernel launch failed: CUDA error {rc}")
+            raise RuntimeError(f"scan kernel ({self.ladder}) launch failed: "
+                               f"CUDA error {rc}")
         self.launches += 1
         return flags
 
 
-scan_kernel = ScanKernel()
+KERNELS = {ladder: ScanKernel(ladder) for ladder in LADDERS}
 
 
 def scan_flags(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
                spend, labels, comb, blockmask=None, *, block_rows=256,
-               wire="x", pack_flags=False):
+               wire="x", pack_flags=False, ladder="fixed",
+               static_sched=None):
     """Match flags of one batch: (1, B) int8, or (1, B/32) int32 with 32
-    flags per word when pack_flags. CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    flags per word when pack_flags. ladder: "fixed" or "wnaf" (digits is
+    the key's schedule for that ladder) or "static" (static_sched is).
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    if ladder not in LADDERS:
+        raise ValueError(f"ladder must be one of {LADDERS}, got {ladder!r}")
+    if ladder == "static":
+        if static_sched is None:
+            raise ValueError("ladder='static' needs static_sched "
+                             "(scalar.glv_wnaf_static of the scan key)")
+        static_sched = check_static_sched(static_sched)
+        d = None
+    else:
+        d = np.ascontiguousarray(np.asarray(torch.as_tensor(digits).cpu(),
+                                            np.int32))
+        if d.shape != DIGITS_SHAPES[ladder]:
+            raise ValueError(f"digits for ladder {ladder!r} must be "
+                             f"{DIGITS_SHAPES[ladder]}, got {d.shape}")
     TW = 16 if wire == "xy" else 8
     B = tweak_words.shape[1]
     if tweak_words.shape[0] != TW or B % block_rows:
@@ -370,13 +556,14 @@ def scan_flags(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
         raise ValueError("outputs planes must be (M, B), M in 1..30, and "
                          "the mask (1, B)")
     if tweak_words.device.type == "cuda":
-        return scan_kernel.launch(
-            tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
-            spend, labels, comb, blockmask, wire=wire,
+        return KERNELS[ladder].launch(
+            tweak_words, outputs_hi, outputs_lo, outputs_mask, d,
+            static_sched, spend, labels, comb, blockmask, wire=wire,
             block_rows=block_rows, pack_flags=pack_flags)
     if tweak_words.device.type != "cpu":
         raise ValueError(f"unsupported device {tweak_words.device}")
     flags = scan_plain(tweak_words, outputs_hi, outputs_lo, outputs_mask,
-                       digits, spend, labels, comb, blockmask, wire=wire,
-                       block_rows=block_rows)
+                       d, spend, labels, comb, blockmask, wire=wire,
+                       block_rows=block_rows, ladder=ladder,
+                       static_sched=static_sched)
     return pack_flag_words(flags) if pack_flags else flags

@@ -1,10 +1,14 @@
 """Host-side (numpy) scalar schedules and the fixed-base comb table:
-counterparts of cudasp_tpu/ops/scalar.py:88-193 and :350-383.
+counterparts of cudasp_tpu/ops/scalar.py:88-295 and :350-383.
 
   * glv_split / glv_odd_sched: the scan key as two GLV half-scalars, each
     recoded into 32 all-nonzero odd radix-16 digits plus a parity
     correction, so the per-row ladder needs no zero-skip and no infinity
     tracking. The schedule is shared by every row.
+  * glv_wnaf_steps / glv_wnaf_static: the two halves as width-5 wNAF,
+    merged into one step list over a shared doubling chain (~43 adds
+    instead of 64, same 8-entry odd-multiple table): as data for the
+    "wnaf" ladder, or trimmed for the per-key "static" build.
   * comb_table_np: t x G for per-row hash scalars t as 32 table reads, one
     per byte of t: entry [i, b] = b * 2^(8*(31-i)) * G (entry 0 = infinity,
     stored as (0, 0)).
@@ -78,6 +82,88 @@ def glv_odd_sched(k: int) -> np.ndarray:
         out[h, ODD_WINDOWS] = e
         out[h, ODD_WINDOWS + 1] = 0 if neg else 1
     return out
+
+
+WNAF_WIDTH = 5        # odd digits +-{1..15}: the fixed ladder's 8-entry table
+WNAF_STEPS = 54       # worst case: 2 halves x ceil(129/5) adds + a trailing
+#                       doubling step
+
+
+def wnaf_digits(v: int, width: int = WNAF_WIDTH):
+    """LSB-first wNAF digits of v >= 0: odd values in +-{1..2^(width-1)-1}
+    or 0, with >= width-1 zeros after every nonzero digit."""
+    digs = []
+    while v:
+        if v & 1:
+            d = v & ((1 << width) - 1)
+            if d >= (1 << (width - 1)):
+                d -= 1 << width
+            v -= d
+        else:
+            d = 0
+        digs.append(d)
+        v >>= 1
+    return digs
+
+
+def glv_wnaf_steps(k: int) -> np.ndarray:
+    """(2, WNAF_STEPS) int32 schedule of the "wnaf" ladder.
+
+    Both GLV halves are recoded as width-5 wNAF and merged into one step
+    list over a shared doubling chain, most significant first. Row 0,
+    col i = doublings before step i's add; row 1 = the add's code: bits
+    0-2 odd-multiple index (|d|-1)/2, bit 3 negate y, bit 4 GLV half
+    (1: lambda*P, whose x is beta*x), bit 5 live (0 = padding or the
+    trailing doubling step, no add). Step 0 is a live add with 0
+    doublings that initializes the accumulator, so the ladder needs no
+    infinity tracking. k == 0 (mod n) encodes as a single +P add: defined
+    garbage that cannot match."""
+    a1, n1, a2, n2 = glv_split(k)
+    events: dict = {}
+    for h, (a, neg) in enumerate(((a1, n1), (a2, n2))):
+        for pos, d in enumerate(wnaf_digits(a)):
+            if d == 0:
+                continue
+            if neg:
+                d = -d
+            events.setdefault(pos, []).append(
+                (h, (abs(d) - 1) // 2, 1 if d < 0 else 0))
+    if not events:
+        events[0] = [(0, 0, 0)]
+    poss = sorted(events, reverse=True)
+    flat = []
+    prev = poss[0]
+    for pos in poss:
+        nd = prev - pos
+        for j, ev in enumerate(events[pos]):
+            flat.append((nd if j == 0 else 0, ev))
+            nd = 0
+        prev = pos
+    if poss[-1] > 0:                       # doublings down to bit 0
+        flat.append((poss[-1], None))
+    if len(flat) > WNAF_STEPS:
+        raise ArithmeticError("wNAF schedule longer than WNAF_STEPS")
+    steps = np.zeros((2, WNAF_STEPS), np.int32)
+    for i, (nd, ev) in enumerate(flat):
+        steps[0, i] = nd
+        if ev is not None:
+            h, idx, sgn = ev
+            steps[1, i] = idx | (sgn << 3) | (h << 4) | (1 << 5)
+    return steps
+
+
+def glv_wnaf_static(k: int) -> tuple:
+    """The "static" ladder's schedule: glv_wnaf_steps with the dead
+    padding steps dropped, as a hashable tuple of (n_doublings, add_code)
+    int pairs. It is compiled into a per-key kernel, so it re-encodes the
+    scan key: treat it, and anything built from it, as secret."""
+    steps = glv_wnaf_steps(k)
+    out = []
+    for i in range(WNAF_STEPS):
+        nd, code = int(steps[0, i]), int(steps[1, i])
+        if nd or (code >> 5):
+            out.append((nd, code))
+    return tuple(out)
 
 
 _comb_cache = []

@@ -36,39 +36,53 @@ def _planes(b, block_rows, wire):
 
 
 class BatchExecutor:
-    """Runs packed batches on one device ("cuda", "cuda:N" or "cpu")."""
+    """Runs packed batches on one device ("cuda", "cuda:N" or "cpu")
+    through one ladder of the scan kernel ("fixed", "wnaf" or "static")."""
 
-    def __init__(self, device, block_rows: int = 256, wire: str = "x"):
+    def __init__(self, device, block_rows: int = 256, wire: str = "x",
+                 ladder: str = "fixed"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available")
+        if ladder not in K.LADDERS:
+            raise ValueError(f"ladder must be one of {K.LADDERS}, got "
+                             f"{ladder!r}")
         self.block_rows = block_rows
         self.wire = wire
+        self.ladder = ladder
 
     def run(self, batches, sched, spend, labels,
             metrics: Optional[ScanMetrics] = None) -> List[tuple]:
         """batches: iterable of ingest.PackedBatch (a generator packs lazily).
-        sched (2, 34) int32, spend (2, 8) and labels (L, 2, 8) uint32 numpy.
-        Returns per-batch (flags bool (B,), source_rows int64 (B,))."""
+        sched: ingest.ScanSchedule; spend (2, 8) and labels (L, 2, 8)
+        uint32 numpy. Returns per-batch (flags bool (B,), source_rows
+        int64 (B,))."""
         t0 = time.perf_counter()
+        digits, static = sched.operands(self.ladder)
         if self.device.type == "cuda":
-            out = self._run_cuda(batches, sched, spend, labels, metrics)
+            # the ladder's kernel is built (a per-key nvcc run for
+            # "static") before the first batch is packed: a failed build
+            # raises here, and nothing falls back to another ladder
+            K.KERNELS[self.ladder].library(static)
+            out = self._run_cuda(batches, digits, static, spend, labels,
+                                 metrics)
         else:
-            out = self._run_cpu(batches, sched, spend, labels, metrics)
+            out = self._run_cpu(batches, digits, static, spend, labels,
+                                metrics)
         if metrics is not None:
             metrics.device_seconds += time.perf_counter() - t0
             metrics.upload_mode = "full64" if self.wire == "xy" else "full"
+            metrics.ladder = self.ladder
         return out
 
-    def _query(self, sched, spend, labels):
+    def _query(self, spend, labels):
         def t(a):
             return torch.from_numpy(
                 np.ascontiguousarray(a).view(np.int32)).to(self.device)
-        return (np.ascontiguousarray(sched, np.int32), t(spend), t(labels),
-                K.comb_table(self.device))
+        return t(spend), t(labels), K.comb_table(self.device)
 
-    def _run_cpu(self, batches, sched, spend, labels, metrics):
-        d, sp, lab, comb = self._query(sched, spend, labels)
+    def _run_cpu(self, batches, d, static, spend, labels, metrics):
+        sp, lab, comb = self._query(spend, labels)
         results = []
         for i, b in enumerate(batches):
             try:
@@ -80,7 +94,8 @@ class BatchExecutor:
                     *(torch.from_numpy(p) for p in planes), d, sp, lab, comb,
                     None if bmask is None else torch.from_numpy(bmask),
                     block_rows=self.block_rows, wire=self.wire,
-                    pack_flags=True)
+                    pack_flags=True, ladder=self.ladder,
+                    static_sched=static)
                 results.append((K.flags_to_bool(flags.numpy(),
                                                 len(b.source_rows)),
                                 b.source_rows))
@@ -90,9 +105,9 @@ class BatchExecutor:
                 metrics.batches += 1
         return results
 
-    def _run_cuda(self, batches, sched, spend, labels, metrics):
+    def _run_cuda(self, batches, d, static, spend, labels, metrics):
         dev = self.device
-        d, sp, lab, comb = self._query(sched, spend, labels)
+        sp, lab, comb = self._query(spend, labels)
         copy_stream = torch.cuda.Stream(dev)
         compute_stream = torch.cuda.Stream(dev)
         slots = []               # two alternating buffer sets, made lazily
@@ -140,7 +155,8 @@ class BatchExecutor:
                         *(dv[a:z] for a, z in views), d, sp, lab, comb,
                         None if bmask is None else dv[at, :len(bmask)],
                         block_rows=self.block_rows, wire=self.wire,
-                        pack_flags=True)
+                        pack_flags=True, ladder=self.ladder,
+                        static_sched=static)
                     slot["flags"].copy_(flags, non_blocking=True)
                     slot["done"].record(compute_stream)
                 if metrics is not None:

@@ -16,6 +16,7 @@ class ScanMetrics:
     batch_size: int = 0
     n_devices: int = 1
     upload_mode: str = ""          # "full" (x + parity bit) or "full64"
+    ladder: str = ""               # "fixed", "wnaf" or "static"
     # Stage attribution. pack runs on the host between launches and
     # overlaps the device, so the stages do not sum to total_seconds; the
     # larger of pack + upload and device_wait names the bottleneck.

@@ -1,9 +1,11 @@
 """The CUDA kernel's own arithmetic, checked on the host: csrc/secp256k1.cuh
 built with g++ (host_check.cpp, no CUDA) into a temporary directory and
 called through ctypes. scan_row() must give the golden flags on both
-wires and the oracle's flags on random rows; the field ops must be exact
-on edge values. This is the one check of the kernel's code that runs
-before a card does."""
+wires and the oracle's flags on random rows, with each of the three
+ladders (the static one through the per-key translation unit that
+ops/kernels.py generates, compiled into host_check.cpp); the field ops
+must be exact on edge values. This is the one check of the kernel's code
+that runs before a card does."""
 
 import ctypes
 import os
@@ -39,26 +41,52 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _host_build(out_dir, static_tu=None):
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to build the kernel's host check"
-    so = tmp_path_factory.mktemp("hostbuild") / "libhostcheck.so"
+    so = out_dir / "libhostcheck.so"
+    extra = [] if static_tu is None else [f'-DSP_STATIC_TU="{static_tu}"']
     subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
-                    "-Werror", "-o", str(so),
+                    "-Werror", "-I", CSRC, *extra, "-o", str(so),
                     os.path.join(CSRC, "host_check.cpp")], check=True,
                    capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(so))
-    vp = ctypes.c_void_p
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("sp_fe_mul", "sp_fe_add", "sp_fe_sub"):
         getattr(lib, name).argtypes = [vp, vp, vp]
     for name in ("sp_fe_inv", "sp_fe_sqrt", "sp_fe_canon"):
         getattr(lib, name).argtypes = [vp, vp]
-    lib.sp_scan_rows.argtypes = [vp] * 7 + [ctypes.c_int, vp] + [
-        ctypes.c_int] * 3 + [vp]
-    for fn in (lib.sp_fe_mul, lib.sp_fe_inv, lib.sp_scan_rows):
+    lib.sp_scan_rows.argtypes = [vp] * 4 + [ci] + [vp] * 3 + [ci, vp] + [
+        ci] * 3 + [vp]
+    fns = [lib.sp_fe_mul, lib.sp_fe_inv, lib.sp_scan_rows]
+    if static_tu is not None:
+        lib.sp_scan_rows_static.argtypes = [vp] * 6 + [ci, vp] + [
+            ci] * 3 + [vp]
+        fns.append(lib.sp_scan_rows_static)
+    for fn in fns:
         fn.restype = None
     return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return _host_build(tmp_path_factory.mktemp("hostbuild"))
+
+
+@pytest.fixture(scope="module")
+def static_lib(tmp_path_factory):
+    """key blob -> the host build with that key's generated static TU,
+    built once per key."""
+    built = {}
+
+    def get(key_blob):
+        if key_blob not in built:
+            steps = TS.glv_wnaf_static(E.blob32_to_scalar(key_blob))
+            d = tmp_path_factory.mktemp("static")
+            (d / "key.cu").write_text(TK.static_source(steps))
+            built[key_blob] = _host_build(d, d / "key.cu")
+        return built[key_blob]
+    return get
 
 
 EDGES = [0, 1, 2, 977, P - 1, P, P + 1, 2**256 - 1, 2**256 - 2**32,
@@ -90,8 +118,9 @@ def test_field_ops_exact_on_edges(lib):
 
 
 def _scan_rows(lib, blobs, outputs, key, spend, labels, wire,
-               valid=None):
-    """Host scan_row over the rows; returns (flags, plain flags)."""
+               valid=None, ladder="fixed", plain=True):
+    """Host scan_row over the rows with one ladder; returns (flags, plain
+    flags or None)."""
     flat = np.concatenate([np.asarray(o, np.int64) for o in outputs])
     offs = np.cumsum([0] + [len(o) for o in outputs]).astype(np.int64)
     M = max(len(o) for o in outputs)
@@ -101,23 +130,32 @@ def _scan_rows(lib, blobs, outputs, key, spend, labels, wire,
         b.tweak_blobs, row_valid, b.outputs_hi, b.outputs_lo,
         b.outputs_valid, block_rows=32, wire=wire)]
     sched, sp, lab, nl = TI.pack_query_keys(key, spend, labels)
+    digits, static = sched.operands(ladder)
     lab_c = np.ascontiguousarray(lab if nl else np.zeros((1, 2, 8),
                                                          np.uint32))
     comb = TS.comb_table_np()
     width = planes[0].shape[1]
     flags = np.zeros(width, np.int8)
     tw, oh, ol, ovm = planes
-    lib.sp_scan_rows(tw.ctypes.data, oh.ctypes.data, ol.ctypes.data,
-                     ovm.ctypes.data, sched.ctypes.data, sp.ctypes.data,
-                     lab_c.ctypes.data, nl, comb.ctypes.data, width, M,
-                     1 if wire == "xy" else 0, flags.ctypes.data)
+    rows = (tw.ctypes.data, oh.ctypes.data, ol.ctypes.data, ovm.ctypes.data)
+    tail = (sp.ctypes.data, lab_c.ctypes.data, nl, comb.ctypes.data, width,
+            M, 1 if wire == "xy" else 0, flags.ctypes.data)
+    if ladder == "static":
+        lib.sp_scan_rows_static(*rows, *tail)
+    else:
+        d = np.ascontiguousarray(digits, np.int32)
+        lib.sp_scan_rows(*rows, 1 if ladder == "wnaf" else 0, d.ctypes.data,
+                         *tail)
+    if not plain:
+        return flags[:len(blobs)] != 0, None
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
-    plain = TK.scan_plain(*(t(p) for p in planes), sched, t(sp), t(lab),
-                          TK.comb_table("cpu"), wire=wire, block_rows=32)
-    return flags[:len(blobs)] != 0, plain[0, :len(blobs)].numpy() != 0
+    pf = TK.scan_plain(*(t(p) for p in planes), digits, t(sp), t(lab),
+                       TK.comb_table("cpu"), wire=wire, block_rows=32,
+                       ladder=ladder, static_sched=static)
+    return flags[:len(blobs)] != 0, pf[0, :len(blobs)].numpy() != 0
 
 
 @pytest.mark.parametrize("wire", ["x", "xy"])
@@ -127,14 +165,39 @@ def test_scan_row_golden(lib, wire):
                           for r in case.rows])
         got, _ = _scan_rows(lib, blobs, [r.outputs for r in case.rows],
                             case.scan_key_blob, case.spend_blob,
-                            case.label_blobs, wire)
+                            case.label_blobs, wire, plain=False)
         want = [r.height in case.expected_heights for r in case.rows]
         assert got.tolist() == want, case.name
 
 
+# the static ladder is built for two keys: the BIP-352 vector's (three
+# golden cases, with and without labels) and the random-rows key
+STATIC_GOLDEN_KEY = V.CASES[1].scan_key_blob
+
+
+@pytest.mark.parametrize("ladder", ["wnaf", "static"])
 @pytest.mark.parametrize("wire", ["x", "xy"])
-def test_scan_row_random_rows_against_oracle(lib, wire):
-    rng = np.random.default_rng(5 if wire == "x" else 6)
+def test_scan_row_golden_wnaf_and_static(lib, static_lib, wire, ladder):
+    cases = V.CASES if ladder == "wnaf" else [
+        c for c in V.CASES if c.scan_key_blob == STATIC_GOLDEN_KEY]
+    assert len(cases) == (6 if ladder == "wnaf" else 3)
+    for case in cases:
+        blobs = np.stack([np.frombuffer(r.tweak_blob, np.uint8)
+                          for r in case.rows])
+        got, _ = _scan_rows(lib if ladder == "wnaf"
+                            else static_lib(case.scan_key_blob), blobs,
+                            [r.outputs for r in case.rows],
+                            case.scan_key_blob, case.spend_blob,
+                            case.label_blobs, wire, ladder=ladder,
+                            plain=False)
+        want = [r.height in case.expected_heights for r in case.rows]
+        assert got.tolist() == want, case.name
+
+
+def _random_rows(seed):
+    """A random key and 64 rows over 8 points, ~20% base and ~15% label
+    matches, row 7 invalid; returns (rows, the oracle's flags)."""
+    rng = np.random.default_rng(seed)
     g = (O.GX, O.GY)
     key = int.from_bytes(rng.bytes(32), "big") % O.N
     spend = O.ec_mul(g, int(rng.integers(1, 2**62)))
@@ -155,14 +218,36 @@ def test_scan_row_random_rows_against_oracle(lib, wire):
                       for j in pick])
     valid = np.ones(64, bool)
     valid[7] = False                               # a padding row flags 0
-    got, plain = _scan_rows(lib, blobs, outputs, E.scalar_to_blob32(key),
-                            E.point_to_blob64(spend),
-                            [E.point_to_blob64(label)], wire, valid)
     want = np.array([PIPE.scan_row(pts[j], key, spend, o, [label])
                      for j, o in zip(pick, outputs)]) & valid
     assert 5 < want.sum() < 40
+    return (blobs, outputs, E.scalar_to_blob32(key), E.point_to_blob64(spend),
+            [E.point_to_blob64(label)]), valid, want
+
+
+@pytest.mark.parametrize("wire", ["x", "xy"])
+def test_scan_row_random_rows_against_oracle(lib, wire):
+    args, valid, want = _random_rows(5 if wire == "x" else 6)
+    got, plain = _scan_rows(lib, *args, wire, valid)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(plain, want)
+
+
+@pytest.fixture(scope="module")
+def rows7():
+    return _random_rows(7)
+
+
+@pytest.mark.parametrize("ladder", ["wnaf", "static"])
+@pytest.mark.parametrize("wire", ["x", "xy"])
+def test_scan_row_random_rows_wnaf_and_static(lib, static_lib, rows7, wire,
+                                              ladder):
+    """The plain ladders are held to the oracle in test_torch_ladders.py;
+    here the card's code is."""
+    args, valid, want = rows7
+    got, _ = _scan_rows(lib if ladder == "wnaf" else static_lib(args[2]),
+                        *args, wire, valid, ladder=ladder, plain=False)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_scan_row_dead_candidate_and_invalid_y(lib):

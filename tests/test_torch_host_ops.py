@@ -102,7 +102,9 @@ def test_pack_query_keys_equal():
         sched, spend, labels, n = TI.pack_query_keys(
             case.scan_key_blob, case.spend_blob, case.label_blobs)
         assert n == jn
-        np.testing.assert_array_equal(sched, jw.odd)
+        np.testing.assert_array_equal(sched.odd, jw.odd)
+        np.testing.assert_array_equal(sched.wnaf, jw.wnaf)
+        assert sched.wnaf_static == jw.wnaf_static
         np.testing.assert_array_equal(spend[0], ct.from_jax_limbs(sx)[:, 0])
         np.testing.assert_array_equal(spend[1], ct.from_jax_limbs(sy)[:, 0])
         for i in range(n):

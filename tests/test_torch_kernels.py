@@ -18,6 +18,7 @@ from cudasp_tpu.runtime.executor import _flags_to_bool as jax_flags_to_bool
 from cudasp_tpu_torch.io import ingest as TI
 from cudasp_tpu_torch.ops import field as TF
 from cudasp_tpu_torch.ops import kernels as TK
+from cudasp_tpu_torch.ops import scalar as TS
 from cudasp_tpu_torch.oracle import encoding as TE
 from cudasp_tpu_torch.oracle import pipeline as TP
 
@@ -98,7 +99,7 @@ def _plain_flags(blobs, flat, offs, M, key, spend, labels, wire,
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
-    flags = TK.scan_flags(*(t(p) for p in planes), sched, t(sp), t(lab),
+    flags = TK.scan_flags(*(t(p) for p in planes), sched.odd, t(sp), t(lab),
                           TK.comb_table("cpu"),
                           None if bmask is None else t(bmask),
                           block_rows=BR, wire=wire)
@@ -228,20 +229,38 @@ def test_scan_flags_checks_shapes_and_never_falls_back(monkeypatch):
     z = torch.zeros((8, 2 * BR), dtype=torch.int32)
     o = torch.zeros((3, 2 * BR), dtype=torch.int32)
     m = torch.zeros((1, 2 * BR), dtype=torch.int32)
-    sched = np.zeros((2, 34), np.int32)
+    key = TS.glv_wnaf_static(12345)
+    digits = {"fixed": np.zeros((2, 34), np.int32),
+              "wnaf": TS.glv_wnaf_steps(12345), "static": None}
     sp = torch.zeros((2, 8), dtype=torch.int32)
     lab = torch.zeros((0, 2, 8), dtype=torch.int32)
     comb = TK.comb_table("cpu")
-    with pytest.raises(ValueError):          # wire xy needs 16 word rows
-        TK.scan_flags(z, o, o, m, sched, sp, lab, comb, block_rows=BR,
-                      wire="xy")
-    with pytest.raises(ValueError):          # B not a block_rows multiple
-        TK.scan_flags(z, o, o, m, sched, sp, lab, comb, block_rows=48)
-    with pytest.raises(ValueError):          # mask must be (1, B)
-        TK.scan_flags(z, o, o, o, sched, sp, lab, comb, block_rows=BR)
-    # the kernel's build raises when nvcc is missing; nothing falls back
+    for ladder, sched in digits.items():
+        kw = dict(ladder=ladder, static_sched=key)
+        with pytest.raises(ValueError):          # wire xy needs 16 rows
+            TK.scan_flags(z, o, o, m, sched, sp, lab, comb, block_rows=BR,
+                          wire="xy", **kw)
+        with pytest.raises(ValueError):          # B not a block_rows multiple
+            TK.scan_flags(z, o, o, m, sched, sp, lab, comb, block_rows=48,
+                          **kw)
+        with pytest.raises(ValueError):          # mask must be (1, B)
+            TK.scan_flags(z, o, o, o, sched, sp, lab, comb, block_rows=BR,
+                          **kw)
+    # each data-driven ladder takes its own schedule's shape only
+    for ladder, other in (("fixed", "wnaf"), ("wnaf", "fixed")):
+        with pytest.raises(ValueError, match="digits"):
+            TK.scan_flags(z, o, o, m, digits[other], sp, lab, comb,
+                          block_rows=BR, ladder=ladder)
+    with pytest.raises(ValueError, match="static_sched"):
+        TK.scan_flags(z, o, o, m, None, sp, lab, comb, block_rows=BR,
+                      ladder="static")
+    with pytest.raises(ValueError, match="ladder"):
+        TK.scan_flags(z, o, o, m, digits["fixed"], sp, lab, comb,
+                      block_rows=BR, ladder="comb")
+    # every ladder's build raises when nvcc is missing; nothing falls back
     monkeypatch.setattr(TK.shutil, "which", lambda _: None)
     monkeypatch.setattr(TK, "NVCC_DEFAULT", "/nonexistent/nvcc")
     monkeypatch.setattr(TK, "_BUILD_ROOT", "/nonexistent/build")
-    with pytest.raises(RuntimeError, match="nvcc"):
-        TK.ScanKernel().library()
+    for ladder in TK.LADDERS:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            TK.ScanKernel(ladder).library(key)

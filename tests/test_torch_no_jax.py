@@ -59,6 +59,24 @@ def test_port_sources_name_no_jax_module():
                     w.split(".")[0] for w in words}, (path, line)
 
 
+def test_kernel_sources_and_generated_tu_include_only_port_headers():
+    """The CUDA sources, and the per-key translation unit that
+    ops/kernels.py generates, include the port's own headers and the
+    C/CUDA runtime only: nothing of the JAX package's csrc/."""
+    from cudasp_tpu_torch.ops import kernels as TK
+    from cudasp_tpu_torch.ops import scalar as TS
+
+    csrc = ROOT / "cudasp_tpu_torch" / "csrc"
+    allowed = {p.name for p in csrc.iterdir()} | {
+        "stddef.h", "stdint.h", "cuda_runtime.h"}
+    texts = [(p.name, p.read_text()) for p in csrc.iterdir()]
+    texts.append(("generated", TK.static_source(TS.glv_wnaf_static(77))))
+    for name, text in texts:
+        includes = [ln.split()[1].strip('"<>') for ln in text.splitlines()
+                    if ln.startswith("#include") and "SP_STATIC_TU" not in ln]
+        assert includes and set(includes) <= allowed, (name, includes)
+
+
 def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):
     for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
                         (tmp_path, shutil.copy(ROOT / "chip_smoke.py",
