@@ -6,14 +6,17 @@
 # Builds the scan kernel's three ladders from cudasp_tpu_torch/csrc with
 # nvcc, all builds started together: csrc/scan.cu ("fixed" and "wnaf") and
 # one generated translation unit per scan key ("static"). Holds each
-# against its plain-torch version and the golden vectors on the card, times
-# each at the main path's launch width, then drives cudasp_tpu_torch.scan
-# over a 2,300,000-row table (the reference's "2 weeks" table, 3 outputs a
-# row, ~1% planted matches) three times: ScanConfig() (fixed ladder, x
-# wire), ScanConfig(ladder="wnaf") and ScanConfig(static_key=True,
-# upload="full64"), each checked exactly and shown to launch its own
-# kernel; then a second static scan with the same key, which must run no
-# nvcc. Every phase prints one line with its result and the elapsed
+# against its plain-torch version and the golden vectors on the card, on
+# the exact wires and on the hi32 / hi16 / hi8 prefilter wires (K12, with
+# outputs exact and corrupted below the cut: a superset of the exact
+# flags), times each at the main path's launch width, then drives
+# cudasp_tpu_torch.scan over a 2,300,000-row table (the reference's "2
+# weeks" table, 3 outputs a row, ~1% planted matches) four times:
+# ScanConfig() (fixed ladder, upload "auto"), ScanConfig(ladder="wnaf"),
+# ScanConfig(static_key=True, upload="full64") and ScanConfig(upload="hi8")
+# (the cut, then the exact pass over the rows it flags), each checked
+# exactly and shown to launch its own kernels; then a second static scan
+# with the same key, which must run no nvcc. Every phase prints one line with its result and the elapsed
 # seconds; any failure raises, so the exit code is non-zero. The last
 # lines are the kernels' JSON line, the card's name and power limit, and
 # {"ok": true, "device": ...}. A watchdog ends a hung run with a stack
@@ -48,17 +51,28 @@ IMAD_PER_S = 33.5e12 / 2
 # the schoolbook, 8 more for the fold by 977
 IMAD_PER_PRODUCT = 72
 LADDERS = ("fixed", "wnaf", "static")
-# each ladder's main path: the ScanConfig fields and the wire they select
-MAIN_PATHS = {"fixed": ({}, "x"), "wnaf": ({"ladder": "wnaf"}, "x"),
-              "static": ({"static_key": True, "upload": "full64"}, "xy")}
+CUTS = ("hi32", "hi16", "hi8")
+# the bits below each cut, flipped in the corrupted-outputs variant: a cut
+# still flags such a row, the exact wire does not
+BELOW_CUT = {"hi32": 0x5A5A5A5A, "hi16": 0x5A5A5A5A5A5A,
+             "hi8": 0x5A5A5A5A5A5A5A}
+# each main path: the ScanConfig fields, the ladder and the wire of its
+# kernel (K12, the cut wires, runs on the fixed ladder's kernel)
+MAIN_PATHS = {"fixed": ({}, "fixed", "x"),
+              "wnaf": ({"ladder": "wnaf"}, "wnaf", "x"),
+              "static": ({"static_key": True, "upload": "full64"}, "static",
+                         "xy"),
+              "hi": ({"upload": "hi8"}, "fixed", "hi8")}
 KERNEL_NAMES = {"fixed": "scan_kernel", "wnaf": "scan_kernel_wnaf",
-                "static": "scan_kernel_static"}
+                "static": "scan_kernel_static", "hi": "scan_kernel_hi"}
 SOURCES = {"fixed": "cudasp_tpu_torch/csrc/scan.cu",
            "wnaf": "cudasp_tpu_torch/csrc/scan.cu",
-           "static": "cudasp_tpu_torch/csrc/scan.cuh"}
+           "static": "cudasp_tpu_torch/csrc/scan.cuh",
+           "hi": "cudasp_tpu_torch/csrc/scan.cu"}
 REPLACES = {"fixed": "cudasp_tpu/ops/kernels.py:737",
             "wnaf": "cudasp_tpu/ops/kernels.py:514",
-            "static": "cudasp_tpu/ops/kernels.py:543"}
+            "static": "cudasp_tpu/ops/kernels.py:543",
+            "hi": "cudasp_tpu/ops/kernels.py:428"}
 
 
 def phase(name, result):
@@ -129,22 +143,26 @@ def ptxas_summary(log):
     return out
 
 
-def pack_rows(table, rows, wire, live_rows=None):
+def pack_rows(table, rows, wire, live_rows=None, hi_only=None,
+              below=0):
     """The first `rows` rows of a table as device planes, the way the
-    executor packs them. live_rows: rows past this index fall in
-    blockmask-dead tiles."""
+    executor packs them, on the x / xy wire or a cut (hi_only). live_rows:
+    rows past this index fall in blockmask-dead tiles. below: a mask
+    XORed into every output value first."""
     import numpy as np
 
     from cudasp_tpu_torch.io import ingest
     from cudasp_tpu_torch.ops import kernels as K
 
     flat, offs = table["outputs"]
-    b = next(ingest.iter_packed(table["tweak_key"][:rows], flat[:offs[rows]],
+    b = next(ingest.iter_packed(table["tweak_key"][:rows],
+                                flat[:offs[rows]] ^ np.int64(below),
                                 offs[:rows + 1], rows,
                                 int(np.diff(offs[:rows + 1]).max())))
     planes = K.pack_batch_arrays(b.tweak_blobs, b.row_valid, b.outputs_hi,
                                  b.outputs_lo, b.outputs_valid,
-                                 block_rows=BLOCK_ROWS, wire=wire)
+                                 block_rows=BLOCK_ROWS, wire=wire,
+                                 hi_only=hi_only)
     bmask = None
     if live_rows is not None:
         width = planes[0].shape[1]
@@ -169,9 +187,11 @@ def query(key, spend, labels):
     return sched, dev_tensor(sp), dev_tensor(lab), K.comb_table("cuda")
 
 
-def check(name, kf, pf, width, expect):
-    """Kernel flags vs plain flags (same layout) and both vs `expect`, a
-    set of row indices. Returns (mismatches, max |kernel - plain|)."""
+def check(name, kf, pf, width, expect, superset=False):
+    """Kernel flags vs plain flags (same layout) bit for bit, and both vs
+    `expect`, a set of row indices: equal, or (a cut wire, superset=True)
+    containing it. Returns (mismatches, max |kernel - plain|, rows
+    flagged)."""
     import numpy as np
 
     from cudasp_tpu_torch.ops import kernels as K
@@ -181,17 +201,20 @@ def check(name, kf, pf, width, expect):
     diff = np.abs(kb.astype(np.int64) - pb.astype(np.int64))
     mism, err = int(diff.sum()), int(diff.max(initial=0))
     got = set(np.flatnonzero(kb).tolist())
-    if mism or got != set(expect) or set(np.flatnonzero(pb)) != set(expect):
+    ok = got >= set(expect) if superset else got == set(expect)
+    if mism or not ok:
         raise AssertionError(
             f"{name}: kernel {sorted(got)[:10]} plain "
             f"{np.flatnonzero(pb)[:10].tolist()} expected "
             f"{sorted(expect)[:10]} ({mism} mismatches)")
-    return mism, err
+    return mism, err, len(got)
 
 
-def compare(name, ladder, planes, bmask, q, wire, expect, pack_flags=False):
-    """Kernel vs plain on the same device tensors. The comparison's own
-    launch is taken back out of the kernel's launch count."""
+def compare(name, ladder, planes, bmask, q, wire, expect, pack_flags=False,
+            hi_only=None, nout=None):
+    """Kernel vs plain on the same device tensors, on the x / xy wire or a
+    cut (hi_only, whose flags need only contain `expect`). The
+    comparison's own launch is taken back out of the kernel's counts."""
     import torch
 
     from cudasp_tpu_torch.ops import kernels as K
@@ -199,20 +222,20 @@ def compare(name, ladder, planes, bmask, q, wire, expect, pack_flags=False):
     sched, sp, lab, comb = q
     digits, static = sched.operands(ladder)
     kern = K.KERNELS[ladder]
-    launches = kern.launches
+    counts = kern.launches, kern.hi_launches
     kf = K.scan_flags(*planes, digits, sp, lab, comb, bmask,
                       block_rows=BLOCK_ROWS, wire=wire,
                       pack_flags=pack_flags, ladder=ladder,
-                      static_sched=static)
+                      static_sched=static, hi_only=hi_only, nout=nout)
     torch.cuda.synchronize()
     pf = K.scan_plain(*planes, digits, sp, lab, comb, bmask, wire=wire,
                       block_rows=BLOCK_ROWS, ladder=ladder,
-                      static_sched=static)
+                      static_sched=static, hi_only=hi_only, nout=nout)
     if pack_flags:
         pf = K.pack_flag_words(pf)
-    kern.launches = launches
-    return check(f"{name}/{ladder}/{wire}", kf, pf, planes[0].shape[1],
-                 expect)
+    kern.launches, kern.hi_launches = counts
+    return check(f"{name}/{ladder}/{hi_only or wire}", kf, pf,
+                 planes[0].shape[1], expect, superset=hi_only is not None)
 
 
 def golden_table(case):
@@ -299,25 +322,34 @@ def main():
     static_runs = st.nvcc_runs
 
     # --- kernel vs plain on the card -------------------------------------
-    mism = {ladder: 0 for ladder in LADDERS}
-    max_err = {ladder: 0 for ladder in LADDERS}
+    # tallies by kernel: each ladder's exact wires, and "hi" (K12) for
+    # every ladder on the cut wires
+    mism = {name: 0 for name in MAIN_PATHS}
+    max_err = {name: 0 for name in MAIN_PATHS}
 
-    def tally(ladder, r):
-        mism[ladder] += r[0]
-        max_err[ladder] = max(max_err[ladder], r[1])
+    def tally(name, r):
+        mism[name] += r[0]
+        max_err[name] = max(max_err[name], r[1])
 
     for case in V.CASES:
         tab = golden_table(case)
         expect = {i for i, r in enumerate(case.rows)
                   if r.height in case.expected_heights}
         q = query(case.scan_key_blob, case.spend_blob, case.label_blobs)
+        nout = int(np.diff(tab["outputs"][1]).max())
         for wire in ("x", "xy"):
             planes, _ = pack_rows(tab, len(case.rows), wire)
             for ladder in LADDERS:
                 tally(ladder, compare(case.name, ladder, planes, None, q,
                                       wire, expect))
-    phase("golden", f"{len(V.CASES)} cases x 2 wires x {len(LADDERS)} "
-          f"ladders, kernel == plain == expected")
+        for hi in CUTS:
+            planes, _ = pack_rows(tab, len(case.rows), "x", hi_only=hi)
+            for ladder in LADDERS:
+                tally("hi", compare(case.name, ladder, planes, None, q, "x",
+                                    expect, hi_only=hi, nout=nout))
+    phase("golden", f"{len(V.CASES)} cases x {len(LADDERS)} ladders x "
+          f"(2 exact wires: kernel == plain == expected; 3 cut wires: "
+          f"kernel == plain >= expected)")
 
     q = query(key, spend, ())
     exp_r = set(planted[planted < RANDOM_ROWS].tolist())
@@ -335,29 +367,53 @@ def main():
     for ladder in LADDERS:
         tally(ladder, compare("blockmask", ladder, planes, bmask, q, "x",
                               exp_live, pack_flags=True))
+    # K12: each cut wire, outputs exact and corrupted below the cut (the
+    # planted rows must still flag), and one dead-tile batch
+    flagged = {}
+    for hi in CUTS:
+        for below in (0, BELOW_CUT[hi]):
+            planes, _ = pack_rows(table, RANDOM_ROWS, "x", hi_only=hi,
+                                  below=below)
+            for ladder in LADDERS:
+                r = compare(f"random/below={below:#x}", ladder, planes,
+                            None, q, "x", exp_r, pack_flags=True,
+                            hi_only=hi, nout=OUTPUTS_PER_ROW)
+                tally("hi", r)
+            flagged[f"{hi}{'/corrupted' if below else ''}"] = r[2]
+    planes, bmask = pack_rows(table, RANDOM_ROWS, "x", live_rows=live,
+                              hi_only="hi8")
+    for ladder in LADDERS:
+        tally("hi", compare("blockmask", ladder, planes, bmask, q, "x",
+                            exp_live, pack_flags=True, hi_only="hi8",
+                            nout=OUTPUTS_PER_ROW))
     phase("kernel-vs-plain", f"{RANDOM_ROWS} random rows (wires x/xy, "
-          f"int8/packed flags, {len(exp_r)} planted) and a dead-tile batch, "
-          f"each ladder: mismatches {mism}")
+          f"int8/packed flags, {len(exp_r)} planted; cut wires with "
+          f"outputs exact and corrupted below the cut, rows flagged "
+          f"{flagged}) and a dead-tile batch, each ladder: mismatches "
+          f"{mism}")
 
-    # --- each ladder at the main path's launch shape, timed ---------------
+    # --- each ladder on each wire at the main path's launch shape, timed --
     width = ct.api.TILE_CUDA
     exp_w = set(planted[planted < width].tolist())
     sched, sp, lab, comb = q
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     reps = 10
     timing = {}
-    for wire in ("x", "xy"):
-        planes, _ = pack_rows(table, width, wire)
+    plain_at = {(ladder, wire) for _, ladder, wire in MAIN_PATHS.values()}
+    for wire in ("x", "xy") + CUTS:
+        hi = wire if wire in CUTS else None
+        planes, _ = pack_rows(table, width, "x" if hi else wire, hi_only=hi)
         for ladder in LADDERS:
             t0 = time.perf_counter()
             digits, static = sched.operands(ladder)
             kern = K.KERNELS[ladder]
-            launches = kern.launches
+            counts = kern.launches, kern.hi_launches
 
             def run():
                 return K.scan_flags(*planes, digits, sp, lab, comb,
-                                    pack_flags=True, wire=wire,
-                                    ladder=ladder, static_sched=static)
+                                    pack_flags=True, wire="x" if hi else wire,
+                                    ladder=ladder, static_sched=static,
+                                    hi_only=hi, nout=OUTPUTS_PER_ROW)
 
             kf = run()
             ev[0].record()
@@ -366,19 +422,22 @@ def main():
             ev[1].record()
             torch.cuda.synchronize()
             t = {"ms": ev[0].elapsed_time(ev[1]) / reps}
-            if wire == MAIN_PATHS[ladder][1]:
-                # the plain version once, on the main path's wire: its
+            if (ladder, wire) in plain_at:
+                # the plain version once, on a main path's wire: its
                 # time, its field products (the bound) and its flags
                 F.PRODUCTS[0] = 0
                 ev[0].record()
-                pf = K.scan_plain(*planes, digits, sp, lab, comb, wire=wire,
-                                  ladder=ladder, static_sched=static)
+                pf = K.scan_plain(*planes, digits, sp, lab, comb,
+                                  wire="x" if hi else wire, ladder=ladder,
+                                  static_sched=static, hi_only=hi,
+                                  nout=OUTPUTS_PER_ROW)
                 ev[1].record()
                 torch.cuda.synchronize()
                 t["plain_ms"] = ev[0].elapsed_time(ev[1])
                 products = F.PRODUCTS[0] / width
-                tally(ladder, check(f"main-batch/{ladder}", kf,
-                                    K.pack_flag_words(pf), width, exp_w))
+                tally("hi" if hi else ladder, check(
+                    f"main-batch/{ladder}/{wire}", kf, K.pack_flag_words(pf),
+                    width, exp_w, superset=hi is not None))
                 del pf
                 nbytes = (sum(p.numel() * 4 for p in planes) + width // 8
                           + comb.numel() * 4 + sp.numel() * 4)
@@ -387,7 +446,7 @@ def main():
                 t.update(products=products, bound_by="operations" if by_ops
                          else "bytes", bound_ms=max(
                              nbytes / HBM_BYTES_PER_S, ops / IMAD_PER_S) * 1e3)
-            kern.launches = launches
+            kern.launches, kern.hi_launches = counts
             timing[ladder, wire] = t
             phase("kernel-time", f"{ladder}/{wire}, {width} rows: kernel "
                   f"{t['ms']:.3f} ms ({width / t['ms'] * 1e3:,.0f} rows/s)"
@@ -396,43 +455,69 @@ def main():
                      f"({t['products']:.0f} field products/row)"
                      if "plain_ms" in t else "")
                   + f" | {smi} [{time.perf_counter() - t0:.1f} s]")
+    def ratio(ladder, wire):
+        return timing[ladder, wire]["ms"] / timing[ladder, "x"]["ms"]
+
+    phase("kernel-ratios", "xy / x (the share upload='auto' models for "
+          "full64): " + ", ".join(f"{ladder} {ratio(ladder, 'xy'):.4f}"
+                                  for ladder in LADDERS)
+          + "; cut / x: " + ", ".join(
+              f"{ladder}/{hi} {ratio(ladder, hi):.4f}"
+              for ladder in LADDERS for hi in CUTS) + f" | {smi}")
 
     # --- the main paths ---------------------------------------------------
     head = {k: (v[:4096] if k != "outputs" else
                 (v[0][:4096 * OUTPUTS_PER_ROW], v[1][:4097]))
             for k, v in table.items()}
     main_launches = {}
-    for ladder in LADDERS:
-        fields, wire = MAIN_PATHS[ladder]
+    for name, (fields, ladder, wire) in MAIN_PATHS.items():
         ct.scan(head, key, spend, config=ct.ScanConfig(**fields))  # warm-up
         for kern in K.KERNELS.values():
-            kern.launches = 0
+            kern.launches = kern.hi_launches = 0
         t0 = time.perf_counter()
         res = ct.scan(table, key, spend, config=ct.ScanConfig(**fields))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = {name: kern.launches for name, kern in K.KERNELS.items()}
+        counts = {n: kern.launches for n, kern in K.KERNELS.items()}
+        cut = K.KERNELS[ladder].hi_launches
         if not np.array_equal(res.indices, planted):
             raise AssertionError(
-                f"main path {ladder}: {len(res.indices)} matches, expected "
+                f"main path {name}: {len(res.indices)} matches, expected "
                 f"{len(planted)}; first differences "
                 f"{np.setxor1d(res.indices, planted)[:10].tolist()}")
         if not np.array_equal(res.height, planted + 800_000):
-            raise AssertionError(f"main path {ladder}: heights differ")
-        if counts[ladder] <= 0 or any(
-                n for other, n in counts.items() if other != ladder):
-            raise AssertionError(f"main path {ladder}: launches {counts}")
-        main_launches[ladder] = counts[ladder]
+            raise AssertionError(f"main path {name}: heights differ")
+        # the path's kernel ran, and no other ladder's; the hi8 path ran
+        # K12 and the exact pass on the fixed ladder's exact wire
+        exact = counts[ladder] - cut
+        if (cut if name == "hi" else counts[ladder]) <= 0 or any(
+                n for other, n in counts.items() if other != ladder) or (
+                name == "hi" and exact <= 0):
+            raise AssertionError(f"main path {name}: launches {counts}, "
+                                 f"{cut} on a cut wire")
+        main_launches[name] = cut if name == "hi" else exact
         m = res.metrics
         kms = timing[ladder, wire]["ms"]
+        extra = ""
+        if name == "hi":
+            extra = (f"; K12 launches {cut}, exact-pass launches {exact}, "
+                     f"reverified_rows {m.reverified_rows}, "
+                     f"{m.upload_bytes / MAIN_ROWS:.2f} B/row up")
+        elif not fields.get("upload"):
+            extra = (f"; auto chose {m.upload_mode} (kernel0 "
+                     f"{m.kernel0_seconds * 1e3:.3f} ms, H2D by events "
+                     f"{m.link_bytes_per_second / 1e9:.3f} GB/s, "
+                     f"{m.h2d_seconds:.4f} s of H2D), cut-wire launches "
+                     f"{cut}, {m.upload_bytes / MAIN_ROWS:.2f} B/row up")
         phase("main-path", f"ScanConfig({fields}): {MAIN_ROWS} rows in "
               f"{secs:.3f} s = {MAIN_ROWS / secs:,.0f} tx/s end to end; "
               f"{len(res.indices)} matches == planted; launches {counts}; "
               f"ladder {m.ladder}, upload {m.upload_mode}, {m.batch_size} "
               f"rows a launch; pack {m.pack_seconds:.3f} s, staging "
-              f"{m.upload_seconds:.3f} s, device wait "
-              f"{m.device_wait_seconds:.3f} s, {m.upload_bytes / 1e6:.1f} MB "
-              f"up; kernel-only {width / kms * 1e3:,.0f} rows/s | {smi}")
+              f"{m.upload_seconds:.3f} s, H2D {m.h2d_seconds:.4f} s, device "
+              f"wait {m.device_wait_seconds:.3f} s, "
+              f"{m.upload_bytes / 1e6:.1f} MB up; kernel-only "
+              f"{width / kms * 1e3:,.0f} rows/s{extra} | {smi}")
 
     # --- the per-key cache: a second static scan with the key -------------
     res = ct.scan(head, key, spend,
@@ -445,25 +530,34 @@ def main():
     phase("static-cache", "warm-up, main path and a second static scan "
           "with the same key: 0 nvcc runs after the build")
 
-    print(json.dumps({"kernels": [{
-        "name": KERNEL_NAMES[ladder],
-        "route": "cuda",
-        "source": SOURCES[ladder],
-        "replaces": REPLACES[ladder],
-        "wire": MAIN_PATHS[ladder][1],
-        "launches": main_launches[ladder],
-        "mismatches": mism[ladder],
-        "max_abs_err": max_err[ladder],
-        "ms": timing[ladder, MAIN_PATHS[ladder][1]]["ms"],
-        "ms_x": timing[ladder, "x"]["ms"],
-        "ms_xy": timing[ladder, "xy"]["ms"],
-        "plain_ms": timing[ladder, MAIN_PATHS[ladder][1]]["plain_ms"],
-        "bound_ms": timing[ladder, MAIN_PATHS[ladder][1]]["bound_ms"],
-        "bound_by": timing[ladder, MAIN_PATHS[ladder][1]]["bound_by"],
-        "products_per_row": timing[ladder, MAIN_PATHS[ladder][1]][
-            "products"],
-        "library_ms": None,
-    } for ladder in LADDERS]}), flush=True)
+    def entry(name):
+        _, ladder, wire = MAIN_PATHS[name]
+        t = timing[ladder, wire]
+        e = {
+            "name": KERNEL_NAMES[name],
+            "route": "cuda",
+            "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "wire": wire,
+            "launches": main_launches[name],
+            "mismatches": mism[name],
+            "max_abs_err": max_err[name],
+            "ms": t["ms"],
+            "ms_x": timing[ladder, "x"]["ms"],
+            "ms_xy": timing[ladder, "xy"]["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "products_per_row": t["products"],
+            "library_ms": None,
+        }
+        if name == "hi":
+            e.update({f"ms_{lad}_{hi}": timing[lad, hi]["ms"]
+                      for lad in LADDERS for hi in CUTS})
+        return e
+
+    print(json.dumps({"kernels": [entry(name) for name in MAIN_PATHS]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,7 @@ import torch
 from .io import ingest
 from .runtime.errors import BindError, IngestError
 from .ops.kernels import LADDERS
-from .runtime.executor import BatchExecutor
+from .runtime.executor import UPLOADS, BatchExecutor
 from .runtime.metrics import ScanMetrics, Timer
 
 DEFAULT_BATCH_SIZE = 300_000       # the reference's default batch size
@@ -29,7 +29,6 @@ MAX_BATCH_SIZE = 10_000_000        # the reference's cap
 TILE_CUDA = 262_144                # rows per kernel launch on the GPU
 TILE_CPU = 1024                    # rows per plain-version call on the CPU
 MAX_OUTPUTS_CAP = 30               # bits 30/31 of the validity mask are taken
-UPLOADS = {"full": "x", "full64": "xy"}
 
 
 @dataclass
@@ -39,9 +38,17 @@ class ScanConfig:
     collect_metrics: bool = True
     # rows per block-skip tile of the kernel's blockmask
     block_rows: int = 256
-    # "full": 32-byte x + parity bit per row, the kernel recovers y;
-    # "full64": the 64-byte point, the kernel skips that square root
-    upload: str = "full"
+    # Batch upload (per row at 3 outputs): "full64" (92 B: the 64-byte
+    # point, the kernel skips the square root), "full" (60 B: 32-byte x +
+    # parity bit, the kernel recovers y), "hi32" (48 B), "hi16" (40 B) or
+    # "hi8" (36 B; at most 6 outputs a row, else it degrades to hi16, and
+    # hi16 above 14 to hi32, with a warning): prefilters on the top 32, 16
+    # or 8 bits of each output, whose flagged rows an exact second pass
+    # re-scans; or "auto": per batch, the mode with the least modeled
+    # time max(bytes / H2D rate, kernel time), both measured on the card
+    # with CUDA events ("full" on the CPU). CUDASP_UPLOAD fills "auto"
+    # only (an explicit value wins).
+    upload: str = "auto"
     # The scan key's ladder: "fixed" (odd-digit windows, 64 adds) or
     # "wnaf" (merged-GLV width-5 wNAF, ~43 adds); both read the key's
     # schedule as data, so one build serves every key. "auto" = fixed;
@@ -146,6 +153,17 @@ def resolve_ladder(cfg: ScanConfig) -> str:
     return ladder
 
 
+def resolve_upload(cfg: ScanConfig) -> str:
+    """The upload mode a config selects: an explicit mode, else
+    CUDASP_UPLOAD, else "auto". Anything else (a misspelt mode, or full64
+    joined to a cut, for which there is no wire) is a BindError."""
+    upload = (cfg.upload if cfg.upload != "auto"
+              else os.environ.get("CUDASP_UPLOAD", "auto"))
+    if upload not in UPLOADS:
+        raise BindError(f"upload must be one of {UPLOADS}, got {upload!r}")
+    return upload
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -191,9 +209,7 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
     for i, lk in enumerate(label_keys):
         if len(bytes(lk)) != 64:
             raise BindError(f"label_keys[{i}] must be exactly 64 bytes")
-    if cfg.upload not in UPLOADS:
-        raise BindError(f"upload must be one of {sorted(UPLOADS)}, got "
-                        f"{cfg.upload!r}")
+    upload = resolve_upload(cfg)
     ladder = resolve_ladder(cfg)
     dev = _resolve_device(device)
 
@@ -260,8 +276,8 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
     if metrics is not None:
         metrics.rows_in = n
         metrics.batch_size = eff_batch
-    executor = BatchExecutor(dev, block_rows=cfg.block_rows,
-                             wire=UPLOADS[cfg.upload], ladder=ladder)
+    executor = BatchExecutor(dev, block_rows=cfg.block_rows, upload=upload,
+                             ladder=ladder)
     results = executor.run(batches, sched, spend, labels, metrics=metrics)
 
     matched: List[np.ndarray] = []

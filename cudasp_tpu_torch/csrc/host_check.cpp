@@ -14,12 +14,16 @@ template <class Ladder>
 void host_rows(const Ladder& lad, const uint32_t* tw, const uint32_t* oh,
                const uint32_t* ol, const uint32_t* ovm,
                const uint32_t* spend, const uint32_t* labels, int nlabels,
-               const uint32_t* comb, int B, int M, int wire_xy,
+               const uint32_t* comb, int B, int M, int wire_xy, int hi,
                int8_t* flags) {
-    for (int r = 0; r < B; r++)
-        flags[r] = (int8_t)sp::scan_row(tw + r, B, wire_xy, oh + r, ol + r,
-                                        M, ovm[r], lad, spend, labels,
-                                        nlabels, comb);
+    // the kernel's per-row steps (scan.cuh), on the host
+    for (int r = 0; r < B; r++) {
+        uint32_t v = sp::row_ovm(oh + r, hi >= sp::HI_16 ? nullptr : ovm + r,
+                                 B, M, hi);
+        flags[r] = (int8_t)sp::scan_row(
+            tw + r, B, wire_xy, oh + r, hi == sp::HI_EXACT ? ol + r : nullptr,
+            M, hi, v, lad, spend, labels, nlabels, comb);
+    }
 }
 
 }  // namespace
@@ -56,18 +60,19 @@ void sp_fe_canon(const uint32_t* a, uint32_t* out) {
     for (int i = 0; i < 8; i++) out[i] = r.v[i];
 }
 
-// ladder: 0 = fixed, digits (2, 34); 1 = wnaf, digits (2, 54)
+// ladder: 0 = fixed, digits (2, 34); 1 = wnaf, digits (2, 54). M: the
+// real output count; hi: 0 exact, 1 hi32, 2 hi16, 3 hi8.
 void sp_scan_rows(const uint32_t* tw, const uint32_t* oh, const uint32_t* ol,
                   const uint32_t* ovm, int ladder, const int32_t* digits,
                   const uint32_t* spend, const uint32_t* labels, int nlabels,
-                  const uint32_t* comb, int B, int M, int wire_xy,
+                  const uint32_t* comb, int B, int M, int wire_xy, int hi,
                   int8_t* flags) {
     if (ladder == 1)
         host_rows(sp::wnaf_ladder(digits), tw, oh, ol, ovm, spend, labels,
-                  nlabels, comb, B, M, wire_xy, flags);
+                  nlabels, comb, B, M, wire_xy, hi, flags);
     else
         host_rows(sp::fixed_ladder(digits), tw, oh, ol, ovm, spend, labels,
-                  nlabels, comb, B, M, wire_xy, flags);
+                  nlabels, comb, B, M, wire_xy, hi, flags);
 }
 
 }  // extern "C"
@@ -78,9 +83,9 @@ void sp_scan_rows(const uint32_t* tw, const uint32_t* oh, const uint32_t* ol,
 extern "C" void sp_scan_rows_static(
     const uint32_t* tw, const uint32_t* oh, const uint32_t* ol,
     const uint32_t* ovm, const uint32_t* spend, const uint32_t* labels,
-    int nlabels, const uint32_t* comb, int B, int M, int wire_xy,
+    int nlabels, const uint32_t* comb, int B, int M, int wire_xy, int hi,
     int8_t* flags) {
     host_rows(KeyLadder(), tw, oh, ol, ovm, spend, labels, nlabels, comb, B,
-              M, wire_xy, flags);
+              M, wire_xy, hi, flags);
 }
 #endif

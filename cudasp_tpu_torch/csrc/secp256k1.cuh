@@ -595,20 +595,55 @@ SP_HD SP_INLINE jac comb_mul(const uint32_t hw[8], const uint32_t* comb,
     return acc;
 }
 
-// Upper-64 semi-join of one candidate against the row's outputs. A dead
-// candidate (z == 0) never matches.
+// The match planes' wire (the kernel's `hi` argument): the exact wire
+// ships each output's hi and lo words; a cut ships less, and compares only
+// the top 32 (hi32), 16 (hi16) or 8 (hi8) bits of the candidate's upper x
+// word, so its flags are a superset of the exact flags. hi16 and hi8 pack
+// the top bits of the M outputs 2 or 4 to a word (unit j at word j / per,
+// shift bits * (j % per)), then one validity unit: there is no ovm plane.
+enum { HI_EXACT = 0, HI_32 = 1, HI_16 = 2, HI_8 = 3 };
+
+// unit j of a row's packed hi16 / hi8 plane, word i at oh[i * stride]
+SP_HD SP_INLINE uint32_t hi_unit(const uint32_t* oh, int stride, int hi,
+                                 int j) {
+    int lg = hi == HI_16 ? 1 : 2;               // log2 of units a word
+    int bits = 32 >> lg;
+    return (oh[(j >> lg) * stride] >> (bits * (j & ((1 << lg) - 1))))
+           & ((1u << bits) - 1u);
+}
+
+// The row's validity word (bits 0..M-1 output valid, 30 y parity, 31 row
+// valid): *ovm on the exact and hi32 wires; on hi16 / hi8 rebuilt from
+// the unit after the M match units (parity at bit 14 / 6, row valid at
+// 15 / 7), and ovm is not read.
+SP_HD SP_INLINE uint32_t row_ovm(const uint32_t* oh, const uint32_t* ovm,
+                                 int stride, int M, int hi) {
+    if (hi < HI_16) return *ovm;
+    int cap = hi == HI_16 ? 14 : 6;
+    uint32_t u = hi_unit(oh, stride, hi, M);
+    return (u & ((1u << M) - 1u)) | (((u >> cap) & 1u) << 30)
+           | ((u >> (cap + 1)) << 31);
+}
+
+// Upper-64 semi-join of one candidate against the row's outputs, on the
+// wire `hi` (ol is read on the exact wire only). A dead candidate
+// (z == 0) never matches.
 SP_HD SP_INLINE bool candidate_hits(const jac& c, const uint32_t* oh,
                                     const uint32_t* ol, int stride, int M,
-                                    uint32_t ovm) {
+                                    int hi, uint32_t ovm) {
     if (fe_is_zero(c.z)) return false;
     fe zi = fe_inv(c.z);
     fe x = fe_canon(fe_mul(c.x, fe_sqr(zi)));
     uint32_t w0 = x.v[7], w1 = x.v[6];          // bits 224..255, 192..223
+    uint32_t top = hi == HI_16 ? w0 >> 16 : hi == HI_8 ? w0 >> 24 : w0;
     bool hit = false;
     SP_ROLLED
-    for (int j = 0; j < M; j++)
-        hit |= ((ovm >> j) & 1u) && oh[j * stride] == w0
-               && ol[j * stride] == w1;
+    for (int j = 0; j < M; j++) {
+        if (!((ovm >> j) & 1u)) continue;
+        uint32_t o = hi >= HI_16 ? hi_unit(oh, stride, hi, j)
+                                 : oh[j * stride];
+        hit |= o == top && (hi != HI_EXACT || ol[j * stride] == w1);
+    }
     return hit;
 }
 
@@ -616,14 +651,16 @@ SP_HD SP_INLINE bool candidate_hits(const jac& c, const uint32_t* oh,
 //   lad: the scan key's ladder (FixedLadder, WnafLadder or a KeyLadder)
 //   tw: the row's tweak words, word i at tw[i * stride]: x (8 words), then
 //       y (8 words) when wire_xy
-//   oh/ol: the row's M upper-64 match words (hi, lo), stride apart
-//   ovm: bits 0..M-1 output valid, bit 30 y parity (x wire), bit 31 row
-//       valid
+//   oh/ol: the row's M upper-64 match words (hi, lo), stride apart, on
+//       the wire `hi` (HI_EXACT .. HI_8; ol is null on a cut)
+//   M: the row's output count (on hi16 / hi8 not oh's row count)
+//   ovm: the row's validity word (row_ovm): bits 0..M-1 output valid,
+//       bit 30 y parity (x wire), bit 31 row valid
 //   spend: x words then y words; labels: nlabels x (x words, y words)
 template <class Ladder>
 SP_HD SP_INLINE int scan_row(const uint32_t* tw, int stride, int wire_xy,
                              const uint32_t* oh, const uint32_t* ol, int M,
-                             uint32_t ovm, const Ladder& lad,
+                             int hi, uint32_t ovm, const Ladder& lad,
                              const uint32_t* spend, const uint32_t* labels,
                              int nlabels, const uint32_t* comb) {
     if (!(ovm >> 31)) return 0;                 // padding row: flag 0
@@ -658,12 +695,12 @@ SP_HD SP_INLINE int scan_row(const uint32_t* tw, int stride, int wire_xy,
     } else {
         f = pt_madd(o, sx, sy);
     }
-    bool hit = candidate_hits(f, oh, ol, stride, M, ovm);
+    bool hit = candidate_hits(f, oh, ol, stride, M, hi, ovm);
     SP_ROLLED
     for (int j = 0; j < nlabels && !hit; j++) {
         const uint32_t* l = labels + j * 16;
         hit = candidate_hits(pt_madd(f, fe_load(l, 1), fe_load(l + 8, 1)),
-                             oh, ol, stride, M, ovm);
+                             oh, ol, stride, M, hi, ovm);
     }
     return hit ? 1 : 0;
 }

@@ -3,7 +3,8 @@ the kernel's plain-torch version.
 
 Counterpart of cudasp_tpu/ops/kernels.py: `scan_flags` plays the role of
 `_scan_pallas_call` (ladders "fixed", "wnaf" and "static", wires "x" and
-"xy", block skip, int8 or 32-per-uint32 packed flags). For CUDA tensors
+"xy", the hi32 / hi16 / hi8 prefilter cuts of the match planes, block
+skip, int8 or 32-per-uint32 packed flags). For CUDA tensors
 it launches the hand-written kernel (csrc/scan.cuh; built with nvcc for
 sm_90a at first use, bound with ctypes): csrc/scan.cu for the ladders that
 read the key's schedule as data, a generated translation unit per scan
@@ -16,6 +17,8 @@ Operands (B = lane width, a multiple of block_rows):
   outputs_hi/lo (M, B) int32      upper-64 match words
   outputs_mask (1, B) int32       bit j < M: output j valid; bit 30: y
                                   parity (wire "x"); bit 31: row valid
+                                  (a cut wire packs these three planes
+                                  differently: pack_batch_arrays)
   digits                          host array: glv_odd_sched (2, 34) int32
                                   for "fixed", glv_wnaf_steps (2, 54) int32
                                   for "wnaf"; unused by "static"
@@ -69,19 +72,56 @@ def live_blockmask(n_live: int, n_blocks: int, block_rows: int):
     return None if mask.all() else mask
 
 
+# the wires of the match planes (None: exact) and the kernel's `hi`
+# argument for each
+HI_CODES = {None: 0, "hi32": 1, "hi16": 2, "hi8": 3}
+HI_ONLY = tuple(HI_CODES)
+# per packed cut: match bits compared, units per uint32 word, output-count
+# cap (the hi16 / hi8 validity unit takes bits 14/15 or 6/7)
+HI_UNITS = {"hi16": (16, 2, 14), "hi8": (8, 4, 6)}
+
+
+def hi_plane_rows(hi_only, M: int) -> int:
+    """Rows of the oh plane on a wire: M, or the packed units of M top-16
+    or top-8 match values plus the validity unit."""
+    if hi_only in HI_UNITS:
+        per = HI_UNITS[hi_only][1]
+        return (M + per) // per
+    return M
+
+
 def pack_batch_arrays(tweak_blobs, row_valid, outputs_hi, outputs_lo,
                       outputs_valid, block_rows: int = 256,
-                      wire: str = "x"):
+                      wire: str = "x", hi_only=None):
     """One packed batch -> the kernel's planes (numpy uint32):
-    (tweak_words (8|16, Bp), oh (M, Bp), ol (M, Bp), ovm (1, Bp)), with
-    Bp the row count padded up to a block_rows multiple."""
+    (tweak_words (8|16, Bp), oh, ol, ovm), with Bp the row count padded up
+    to a block_rows multiple. Exact wires: oh/ol (M, Bp), ovm (1, Bp).
+    hi_only (the JAX package's hi_only=True is "hi32") cuts the match
+    planes to a prefilter whose flags are a superset of the exact flags:
+      "hi32": ol is a (M, 1) dummy;
+      "hi16": oh is the top 16 bits of each value, two units a word (unit
+              u at row u // 2, shift 16 (u % 2)), then a validity unit
+              (bits 0..M-1 valid, 14 parity, 15 row valid); ol and ovm
+              are (1, 1) dummies; M <= 14;
+      "hi8":  the same with top-8 units, four a word, parity at bit 6 and
+              row valid at bit 7; M <= 6.
+    The dummies never cross the wire."""
     if wire not in ("x", "xy"):
         raise ValueError(f"wire must be 'x' or 'xy', got {wire!r}")
+    if hi_only not in HI_ONLY:
+        raise ValueError(f"hi_only must be one of {HI_ONLY}, got "
+                         f"{hi_only!r}")
+    if wire == "xy" and hi_only:
+        raise ValueError("wire='xy' (full64) is an exact wire; it does not "
+                         "combine with a hi_only cut")
     B = int(tweak_blobs.shape[0])
     M = int(outputs_hi.shape[1])
     if M > 30:
         raise ValueError("outputs plane width > 30 collides with the "
                          "parity/row_valid bits of the validity bitmask")
+    if hi_only in HI_UNITS and M > HI_UNITS[hi_only][2]:
+        raise ValueError(f"{hi_only} packing supports at most "
+                         f"{HI_UNITS[hi_only][2]} outputs, got {M}")
     Bp = max(block_rows, ((B + block_rows - 1) // block_rows) * block_rows)
     pad = Bp - B
 
@@ -103,8 +143,22 @@ def pack_batch_arrays(tweak_blobs, row_valid, outputs_hi, outputs_lo,
     ovm |= (blobs[:, 32] & np.uint8(1)).astype(np.uint32) << np.uint32(30)
     ovm |= np.asarray(row_valid).astype(np.uint32) << np.uint32(31)
     oh = np.ascontiguousarray(np.asarray(outputs_hi).T).view(np.uint32)
-    ol = np.ascontiguousarray(np.asarray(outputs_lo).T).view(np.uint32)
-    return padB(words), padB(oh), padB(ol), padB(ovm[None, :])
+    if hi_only in HI_UNITS:
+        bits, per, cap = HI_UNITS[hi_only]
+        units = list(oh >> np.uint32(32 - bits))
+        units.append((ovm & np.uint32((1 << M) - 1))
+                     | (((ovm >> np.uint32(30)) & np.uint32(1))
+                        << np.uint32(cap))
+                     | ((ovm >> np.uint32(31)) << np.uint32(cap + 1)))
+        packed = np.zeros((hi_plane_rows(hi_only, M), B), np.uint32)
+        for j, u in enumerate(units):
+            packed[j // per] |= u << np.uint32(bits * (j % per))
+        dummy = np.zeros((1, 1), np.uint32)
+        return padB(words), padB(packed), dummy, dummy.copy()
+    ol = (np.zeros((M, 1), np.uint32) if hi_only else
+          padB(np.ascontiguousarray(np.asarray(outputs_lo).T)
+               .view(np.uint32)))
+    return padB(words), padB(oh), ol, padB(ovm[None, :])
 
 
 def comb_table(device) -> torch.Tensor:
@@ -238,37 +292,68 @@ def stage_output_final(hw, spend, comb):
     return C.madd_complete_lite(ox, oy, oz, oinf, sf[0], sf[1])
 
 
-def stage_match(fx, fy, fz, oh, ol, ovm, labels):
+def _hi_unit(oh, j, hi_only):
+    """(B,) unit j of a packed hi16 / hi8 plane (int64)."""
+    bits, per, _ = HI_UNITS[hi_only]
+    return (_u32(oh[j // per]) >> (bits * (j % per))) & ((1 << bits) - 1)
+
+
+def row_validity(oh, ovm, nout, hi_only=None):
+    """The (1, B) validity words (bits 0..M-1 output valid, 30 y parity,
+    31 row valid): the ovm plane's, or on hi16 / hi8, whose ovm is a
+    dummy, rebuilt from the unit packed after the nout match units."""
+    if hi_only not in HI_UNITS:
+        return ovm
+    cap = HI_UNITS[hi_only][2]
+    u = _hi_unit(oh, nout, hi_only)
+    return ((u & ((1 << nout) - 1)) | (((u >> cap) & 1) << 30)
+            | ((u >> (cap + 1)) << 31))[None]
+
+
+def stage_match(fx, fy, fz, oh, ol, ovm, labels, hi_only=None, nout=None):
     """Candidates final, final + label_j -> (B,) bool flags (row valid,
-    some valid output's upper 64 bits equal to a live candidate's)."""
+    some valid output's upper 64 bits equal to a live candidate's). On a
+    cut wire only the top 32 / 16 / 8 bits of the upper word are compared
+    (ol is not read): a superset of the exact flags. ovm is the validity
+    word (row_validity); nout the real output count (hi16 / hi8)."""
     cands = [(fx, fz)]
     lf = F.words_to_fe(labels)
     for j in range(lf.shape[0]):
         cx, _, cz = C.madd(fx, fy, fz, lf[j, 0], lf[j, 1])
         cands.append((cx, cz))
+    M = oh.shape[0] if nout is None else nout
     m = _u32(ovm[0])
-    ov = torch.stack([((m >> j) & 1) != 0 for j in range(oh.shape[0])], -1)
-    ohu, olu = _u32(oh).T, _u32(ol).T                   # (B, M)
+    ov = torch.stack([((m >> j) & 1) != 0 for j in range(M)], -1)
+    if hi_only in HI_UNITS:
+        ohu = torch.stack([_hi_unit(oh, j, hi_only) for j in range(M)], -1)
+    else:
+        ohu = _u32(oh).T                                # (B, M)
     hit = torch.zeros_like(m, dtype=torch.bool)
     for (cx, cz), zi in zip(cands, F.inv_many([c[1] for c in cands])):
         w = F.fe_to_words(F.canonical(F.mul(cx, F.sqr(zi))))
-        eq = (w[..., 7:8] == ohu) & (w[..., 6:7] == olu) & ov
+        top = w[..., 7:8]
+        if hi_only in HI_UNITS:
+            top = top >> (32 - HI_UNITS[hi_only][0])
+        eq = (top == ohu) & ov
+        if hi_only is None:
+            eq = eq & (w[..., 6:7] == _u32(ol).T)
         hit = hit | (eq.any(-1) & ~F.is_zero(cz))
     return hit & (((m >> 31) & 1) != 0)
 
 
 def scan_plain(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
                spend, labels, comb, blockmask=None, *, wire="x",
-               block_rows=256, ladder="fixed", static_sched=None):
+               block_rows=256, ladder="fixed", static_sched=None,
+               hi_only=None, nout=None):
     """The kernel's function in plain torch: (1, B) int8 flags."""
     d = (None if digits is None
          else np.asarray(torch.as_tensor(digits).cpu(), np.int32))
-    ex, ey, ez = stage_ecdh(tweak_words, outputs_mask, d, wire, ladder,
-                            static_sched)
+    ovm = row_validity(outputs_hi, outputs_mask, nout, hi_only)
+    ex, ey, ez = stage_ecdh(tweak_words, ovm, d, wire, ladder, static_sched)
     hw = stage_serialize_hash(ex, ey, ez)
     fx, fy, fz = stage_output_final(hw, spend, comb)
-    hit = stage_match(fx, fy, fz, outputs_hi, outputs_lo, outputs_mask,
-                      labels)
+    hit = stage_match(fx, fy, fz, outputs_hi, outputs_lo, ovm, labels,
+                      hi_only, nout)
     if blockmask is not None:
         live = torch.as_tensor(blockmask, device=hit.device) != 0
         hit = hit & live.repeat_interleave(block_rows)[:hit.shape[0]]
@@ -282,7 +367,7 @@ def scan_plain(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
 _SOURCES = ("scan.cu", "scan.cuh", "secp256k1.cuh")
 _HEADERS = ("scan.cuh", "secp256k1.cuh")
 _LADDER_IDS = {"fixed": 0, "wnaf": 1}
-STATIC_GENERATOR_VERSION = 1
+STATIC_GENERATOR_VERSION = 2
 
 _STATIC_TU = """\
 // Generated by cudasp_tpu_torch/ops/kernels.py (static ladder generator
@@ -303,11 +388,11 @@ extern "C" int cudasp_scan_static_launch(
     const uint32_t* tw, const uint32_t* oh, const uint32_t* ol,
     const uint32_t* ovm, const uint32_t* spend, const uint32_t* labels,
     int nlabels, const uint32_t* comb, const int32_t* blockmask,
-    int block_rows, int B, int M, int wire_xy, int packed, void* flags,
-    void* stream) {{
+    int block_rows, int B, int M, int wire_xy, int hi, int packed,
+    void* flags, void* stream) {{
     return sp::launch_scan(KeyLadder(), tw, oh, ol, ovm, spend, labels,
                            nlabels, comb, blockmask, block_rows, B, M,
-                           wire_xy, packed, flags, stream);
+                           wire_xy, hi, packed, flags, stream);
 }}
 #endif
 """
@@ -383,7 +468,8 @@ class ScanKernel:
     is reused while its hash matches; a loaded one is kept for the life
     of the object, so a second scan with the same key builds nothing.
 
-    launches: kernel launches of this ladder. nvcc_runs, build_seconds,
+    launches: kernel launches of this ladder; hi_launches: those of them
+    on a cut wire (hi32 / hi16 / hi8). nvcc_runs, build_seconds,
     build_log: this object's nvcc builds (the last one's seconds and
     ptxas log; None and "" while every library was found built)."""
 
@@ -392,6 +478,7 @@ class ScanKernel:
             raise ValueError(f"ladder must be one of {LADDERS}")
         self.ladder = ladder
         self.launches = 0
+        self.hi_launches = 0
         self.nvcc_runs = 0
         self.build_seconds = None
         self.build_log = ""
@@ -421,7 +508,7 @@ class ScanKernel:
             self._build(out_dir, so, steps)
         lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        tail = [vp, vp, ci, vp, vp] + [ci] * 5 + [vp, vp]
+        tail = [vp, vp, ci, vp, vp] + [ci] * 6 + [vp, vp]
         if steps is None:
             fn = lib.cudasp_scan_launch
             fn.argtypes = [vp] * 4 + [ci, vp] + tail
@@ -475,10 +562,10 @@ class ScanKernel:
 
     def launch(self, tweak_words, outputs_hi, outputs_lo, outputs_mask,
                digits, static_sched, spend, labels, comb, blockmask, *,
-               wire, block_rows, pack_flags):
-        """digits: the checked host schedule (None for "static")."""
+               wire, block_rows, pack_flags, hi_only, nout):
+        """digits: the checked host schedule (None for "static"); nout:
+        the real output count. Shapes are checked by scan_flags."""
         B = tweak_words.shape[1]
-        M = outputs_hi.shape[0]
         dev = tweak_words.device
         tensors = {"tweak_words": tweak_words, "outputs_hi": outputs_hi,
                    "outputs_lo": outputs_lo, "outputs_mask": outputs_mask,
@@ -498,15 +585,18 @@ class ScanKernel:
                  if pack_flags else
                  torch.empty((1, B), dtype=torch.int8, device=dev))
         lib = self.library(static_sched)
+        # a cut wire's dummy planes go to the kernel as null pointers
         rows = (tweak_words.data_ptr(), outputs_hi.data_ptr(),
-                outputs_lo.data_ptr(), outputs_mask.data_ptr())
+                None if hi_only else outputs_lo.data_ptr(),
+                None if hi_only in HI_UNITS else outputs_mask.data_ptr())
         with torch.cuda.device(dev):
             tail = (spend.data_ptr(),
                     labels.data_ptr() if labels.numel() else None,
                     labels.shape[0], comb.data_ptr(),
                     blockmask.data_ptr() if blockmask is not None else None,
-                    block_rows, B, M, 1 if wire == "xy" else 0,
-                    1 if pack_flags else 0, flags.data_ptr(),
+                    block_rows, B, nout, 1 if wire == "xy" else 0,
+                    HI_CODES[hi_only], 1 if pack_flags else 0,
+                    flags.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream)
             if self.ladder == "static":
                 rc = lib.cudasp_scan_static_launch(*rows, *tail)
@@ -517,6 +607,8 @@ class ScanKernel:
             raise RuntimeError(f"scan kernel ({self.ladder}) launch failed: "
                                f"CUDA error {rc}")
         self.launches += 1
+        if hi_only:
+            self.hi_launches += 1
         return flags
 
 
@@ -526,11 +618,14 @@ KERNELS = {ladder: ScanKernel(ladder) for ladder in LADDERS}
 def scan_flags(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
                spend, labels, comb, blockmask=None, *, block_rows=256,
                wire="x", pack_flags=False, ladder="fixed",
-               static_sched=None):
+               static_sched=None, hi_only=None, nout=None):
     """Match flags of one batch: (1, B) int8, or (1, B/32) int32 with 32
     flags per word when pack_flags. ladder: "fixed" or "wnaf" (digits is
     the key's schedule for that ladder) or "static" (static_sched is).
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    hi_only: None (exact) or a cut wire as pack_batch_arrays packs it,
+    whose flags are a superset of the exact flags; nout is the real output
+    count, needed by hi16 / hi8. CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
     if ladder not in LADDERS:
         raise ValueError(f"ladder must be one of {LADDERS}, got {ladder!r}")
     if ladder == "static":
@@ -545,25 +640,43 @@ def scan_flags(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
         if d.shape != DIGITS_SHAPES[ladder]:
             raise ValueError(f"digits for ladder {ladder!r} must be "
                              f"{DIGITS_SHAPES[ladder]}, got {d.shape}")
+    if hi_only not in HI_ONLY:
+        raise ValueError(f"hi_only must be one of {HI_ONLY}, got "
+                         f"{hi_only!r}")
+    if wire == "xy" and hi_only:
+        raise ValueError("wire='xy' does not combine with a hi_only cut")
     TW = 16 if wire == "xy" else 8
     B = tweak_words.shape[1]
     if tweak_words.shape[0] != TW or B % block_rows:
         raise ValueError(f"tweak_words must be ({TW}, B) with B a multiple "
                          f"of block_rows={block_rows}")
-    M = outputs_hi.shape[0]
-    if not 0 < M <= 30 or outputs_lo.shape != (M, B) \
-            or outputs_mask.shape != (1, B):
-        raise ValueError("outputs planes must be (M, B), M in 1..30, and "
-                         "the mask (1, B)")
+    if nout is None:
+        if hi_only in HI_UNITS:
+            raise ValueError(f"hi_only={hi_only!r} needs nout, the real "
+                             f"output count")
+        nout = outputs_hi.shape[0]
+    M = int(nout)
+    cap = HI_UNITS[hi_only][2] if hi_only in HI_UNITS else 30
+    hi = (hi_plane_rows(hi_only, M), B)
+    lo = {None: (M, B), "hi32": (M, 1)}.get(hi_only, (1, 1))
+    mask = (1, 1) if hi_only in HI_UNITS else (1, B)
+    if not 0 < M <= cap or outputs_hi.shape != hi \
+            or outputs_lo.shape != lo or outputs_mask.shape != mask:
+        raise ValueError(
+            f"wire {hi_only or 'exact'} with M in 1..{cap} outputs: oh must "
+            f"be {hi}, ol {lo} and the mask {mask}; got M={M}, "
+            f"{tuple(outputs_hi.shape)}, {tuple(outputs_lo.shape)}, "
+            f"{tuple(outputs_mask.shape)}")
     if tweak_words.device.type == "cuda":
         return KERNELS[ladder].launch(
             tweak_words, outputs_hi, outputs_lo, outputs_mask, d,
             static_sched, spend, labels, comb, blockmask, wire=wire,
-            block_rows=block_rows, pack_flags=pack_flags)
+            block_rows=block_rows, pack_flags=pack_flags, hi_only=hi_only,
+            nout=M)
     if tweak_words.device.type != "cpu":
         raise ValueError(f"unsupported device {tweak_words.device}")
     flags = scan_plain(tweak_words, outputs_hi, outputs_lo, outputs_mask,
                        d, spend, labels, comb, blockmask, wire=wire,
                        block_rows=block_rows, ladder=ladder,
-                       static_sched=static_sched)
+                       static_sched=static_sched, hi_only=hi_only, nout=M)
     return pack_flag_words(flags) if pack_flags else flags

@@ -15,7 +15,10 @@ class ScanMetrics:
     matches: int = 0
     batch_size: int = 0
     n_devices: int = 1
-    upload_mode: str = ""          # "full" (x + parity bit) or "full64"
+    # the last mode a batch shipped that was not "full" (a cut or
+    # "full64"), else "full"; as the reference reports it
+    upload_mode: str = ""
+    reverified_rows: int = 0       # rows a cut flagged: the exact pass's
     ladder: str = ""               # "fixed", "wnaf" or "static"
     # Stage attribution. pack runs on the host between launches and
     # overlaps the device, so the stages do not sum to total_seconds; the
@@ -23,9 +26,15 @@ class ScanMetrics:
     pack_seconds: float = 0.0          # host ingest + plane packing
     upload_bytes: int = 0              # H2D bytes (planes + blockmask)
     upload_seconds: float = 0.0        # host time staging into pinned
+    h2d_seconds: float = 0.0           # the H2D copies, by CUDA events
     device_wait_seconds: float = 0.0   # host blocked on batch results
     device_seconds: float = 0.0        # the executor's whole run
     total_seconds: float = 0.0
+    # upload="auto" on a card: the batch-0 kernel seconds (CUDA events, or
+    # the process's memo of that shape) and the best H2D rate of the last
+    # four batches (bytes / event-timed seconds) the model last read
+    kernel0_seconds: float = 0.0
+    link_bytes_per_second: float = 0.0
 
     @property
     def bottleneck(self) -> str:

@@ -145,12 +145,70 @@ def test_bind_and_ingest_errors():
     with pytest.raises(ct.BindError):
         ct.scan(t, k, s, batch_size=0, device="cpu")
     with pytest.raises(ct.BindError):
-        ct.scan(t, k, s, device="cpu", config=ct.ScanConfig(upload="hi8"))
+        ct.scan(t, k, s, device="cpu", config=ct.ScanConfig(upload="hi4"))
     with pytest.raises(ct.IngestError):
         ct.scan({"tweak_key": t["tweak_key"]}, k, s, device="cpu")
     with pytest.raises(ct.IngestError):
         ct.scan({"tweak_key": [b"\x01" * 63], "outputs": [[1]]}, k, s,
                 device="cpu")
+
+
+@pytest.mark.parametrize("upload", ["hi4", "exact", "", "full64+hi8",
+                                    "full64,hi16", "FULL"])
+def test_unknown_upload_is_a_bind_error(upload):
+    """Six modes exist; a misspelt one, or full64 joined to a cut (there is
+    no such wire: full64 is exact), is refused before any batch runs."""
+    case = JV.CASES[0]
+    with pytest.raises(ct.BindError, match="upload"):
+        ct.scan(_table(case), case.scan_key_blob, case.spend_blob,
+                device="cpu", config=ct.ScanConfig(upload=upload))
+
+
+_UPLOAD_REF = {}
+
+
+@pytest.mark.parametrize("upload", ["full64", "hi32", "hi16", "hi8", "auto"])
+def test_golden_cases_same_rows_as_jax_on_every_upload(upload):
+    """Every golden case on each upload mode: the JAX package's rows (a
+    cut through its exact second pass; "auto" is "full" on the CPU)."""
+    for case in JV.CASES:
+        if case.name not in _UPLOAD_REF:
+            _UPLOAD_REF[case.name] = cudasp_tpu.scan(
+                _table(case), case.scan_key_blob, case.spend_blob,
+                case.label_blobs).indices
+        ours = ct.scan(_table(case), case.scan_key_blob, case.spend_blob,
+                       case.label_blobs, device="cpu",
+                       config=ct.ScanConfig(upload=upload, **SMALL))
+        np.testing.assert_array_equal(ours.indices, _UPLOAD_REF[case.name])
+        assert tuple(int(h) for h in ours.height) == case.expected_heights
+        m = ours.metrics
+        assert m.upload_mode == ("full" if upload == "auto" else upload)
+        if upload in ("hi32", "hi16", "hi8"):
+            # every match went through the exact pass (hi16 and hi8 may
+            # flag more: their top bits can collide)
+            assert m.reverified_rows >= len(case.expected_heights)
+        else:
+            assert m.reverified_rows == 0
+
+
+@pytest.mark.parametrize("block_rows", [32, 48, 64, 100])
+def test_block_rows_need_not_be_a_multiple_of_32(block_rows):
+    """Packed flags need a lane width that is a multiple of 32; other
+    widths read int8 flags back, as the reference does. Case 0's batch is
+    128 rows wide, padded to a block_rows multiple (144 and 200 take the
+    int8 flags); 130 rows make a 256-row batch, 288 wide at block_rows=48,
+    which packs."""
+    case = JV.CASES[0]
+    ours = ct.scan(_table(case), case.scan_key_blob, case.spend_blob,
+                   device="cpu", config=ct.ScanConfig(block_rows=block_rows))
+    assert tuple(int(h) for h in ours.height) == case.expected_heights
+    if block_rows == 48:
+        row = case.rows[0]
+        t = {"tweak_key": [row.tweak_blob] * 130,
+             "outputs": [list(row.outputs)] * 130}
+        res = ct.scan(t, case.scan_key_blob, case.spend_blob, device="cpu",
+                      config=ct.ScanConfig(block_rows=48))
+        assert res.indices.tolist() == list(range(130))
 
 
 def test_scan_needs_a_gpu_unless_told_cpu(monkeypatch):

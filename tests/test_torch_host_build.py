@@ -57,11 +57,11 @@ def _host_build(out_dir, static_tu=None):
     for name in ("sp_fe_inv", "sp_fe_sqrt", "sp_fe_canon"):
         getattr(lib, name).argtypes = [vp, vp]
     lib.sp_scan_rows.argtypes = [vp] * 4 + [ci] + [vp] * 3 + [ci, vp] + [
-        ci] * 3 + [vp]
+        ci] * 4 + [vp]
     fns = [lib.sp_fe_mul, lib.sp_fe_inv, lib.sp_scan_rows]
     if static_tu is not None:
         lib.sp_scan_rows_static.argtypes = [vp] * 6 + [ci, vp] + [
-            ci] * 3 + [vp]
+            ci] * 4 + [vp]
         fns.append(lib.sp_scan_rows_static)
     for fn in fns:
         fn.restype = None
@@ -118,9 +118,9 @@ def test_field_ops_exact_on_edges(lib):
 
 
 def _scan_rows(lib, blobs, outputs, key, spend, labels, wire,
-               valid=None, ladder="fixed", plain=True):
-    """Host scan_row over the rows with one ladder; returns (flags, plain
-    flags or None)."""
+               valid=None, ladder="fixed", plain=True, hi_only=None):
+    """Host scan_row over the rows with one ladder, on the match planes'
+    wire hi_only; returns (flags, plain flags or None)."""
     flat = np.concatenate([np.asarray(o, np.int64) for o in outputs])
     offs = np.cumsum([0] + [len(o) for o in outputs]).astype(np.int64)
     M = max(len(o) for o in outputs)
@@ -128,7 +128,7 @@ def _scan_rows(lib, blobs, outputs, key, spend, labels, wire,
     row_valid = b.row_valid if valid is None else valid
     planes = [np.ascontiguousarray(p) for p in TK.pack_batch_arrays(
         b.tweak_blobs, row_valid, b.outputs_hi, b.outputs_lo,
-        b.outputs_valid, block_rows=32, wire=wire)]
+        b.outputs_valid, block_rows=32, wire=wire, hi_only=hi_only)]
     sched, sp, lab, nl = TI.pack_query_keys(key, spend, labels)
     digits, static = sched.operands(ladder)
     lab_c = np.ascontiguousarray(lab if nl else np.zeros((1, 2, 8),
@@ -139,7 +139,8 @@ def _scan_rows(lib, blobs, outputs, key, spend, labels, wire,
     tw, oh, ol, ovm = planes
     rows = (tw.ctypes.data, oh.ctypes.data, ol.ctypes.data, ovm.ctypes.data)
     tail = (sp.ctypes.data, lab_c.ctypes.data, nl, comb.ctypes.data, width,
-            M, 1 if wire == "xy" else 0, flags.ctypes.data)
+            M, 1 if wire == "xy" else 0, TK.HI_CODES[hi_only],
+            flags.ctypes.data)
     if ladder == "static":
         lib.sp_scan_rows_static(*rows, *tail)
     else:
@@ -154,7 +155,8 @@ def _scan_rows(lib, blobs, outputs, key, spend, labels, wire,
 
     pf = TK.scan_plain(*(t(p) for p in planes), digits, t(sp), t(lab),
                        TK.comb_table("cpu"), wire=wire, block_rows=32,
-                       ladder=ladder, static_sched=static)
+                       ladder=ladder, static_sched=static, hi_only=hi_only,
+                       nout=M)
     return flags[:len(blobs)] != 0, pf[0, :len(blobs)].numpy() != 0
 
 
@@ -273,3 +275,36 @@ def test_scan_row_dead_candidate_and_invalid_y(lib):
                                 case.scan_key_blob, case.spend_blob, (),
                                 wire)
         assert got.tolist() == plain.tolist() == [want]
+
+
+def _corrupt_low(outputs, hi_only):
+    """Each output with bits below the cut's top 32 / 16 / 8 flipped: a
+    cut still flags the row, the exact wire does not."""
+    low = {"hi32": 0x5A5A5A5A, "hi16": 0x5A5A5A5A5A5A,
+           "hi8": 0x5A5A5A5A5A5A5A}[hi_only]
+    return [[int(np.int64(v) ^ np.int64(low)) for v in o] for o in outputs]
+
+
+@pytest.mark.parametrize("hi_only", ["hi32", "hi16", "hi8"])
+def test_scan_row_hi_wires(lib, rows7, hi_only):
+    """scan_row on a cut wire: the golden flags (hi16 / hi8 unfold the
+    validity unit, y's parity bit included, from the packed plane), and on
+    random rows the plain version's flags bit for bit, with outputs exact
+    and with their bits below the cut corrupted, where every oracle match
+    still flags."""
+    for case in V.CASES:
+        blobs = np.stack([np.frombuffer(r.tweak_blob, np.uint8)
+                          for r in case.rows])
+        for ladder in ("fixed", "wnaf"):
+            got, _ = _scan_rows(lib, blobs, [r.outputs for r in case.rows],
+                                case.scan_key_blob, case.spend_blob,
+                                case.label_blobs, "x", ladder=ladder,
+                                plain=False, hi_only=hi_only)
+            want = [r.height in case.expected_heights for r in case.rows]
+            assert got.tolist() == want, (case.name, ladder)
+    (blobs, outputs, *keys), valid, want = rows7
+    for outs in (outputs, _corrupt_low(outputs, hi_only)):
+        got, plain = _scan_rows(lib, blobs, outs, *keys, "x", valid,
+                                hi_only=hi_only)
+        np.testing.assert_array_equal(got, plain)
+        assert (got | ~want).all()                      # a superset

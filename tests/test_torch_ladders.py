@@ -28,6 +28,7 @@ from cudasp_tpu_torch.io import ingest as TI
 from cudasp_tpu_torch.ops import field as TF
 from cudasp_tpu_torch.ops import kernels as TK
 from cudasp_tpu_torch.ops import scalar as TS
+from cudasp_tpu_torch.runtime import executor
 from cudasp_tpu_torch.runtime.executor import BatchExecutor
 
 G = (JO.GX, JO.GY)
@@ -283,8 +284,10 @@ def test_static_key_scan_raises_before_any_batch_when_nvcc_fails(
     def no_batches(*a, **k):
         raise AssertionError("a batch ran after a failed build")
 
-    monkeypatch.setattr(BatchExecutor, "_run_cuda", no_batches)
-    monkeypatch.setattr(BatchExecutor, "_run_cpu", no_batches)
+    # the executor's device stages (staging and launches on the card, or
+    # the plain version): neither may be set up after the failed build
+    monkeypatch.setattr(executor, "_Cuda", no_batches)
+    monkeypatch.setattr(executor, "_Cpu", no_batches)
     table, key, spend, labels, _ = seeded
     with pytest.raises(RuntimeError, match="nvcc failed"):
         ct.scan(table, key, spend, labels,
