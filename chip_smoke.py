@@ -16,11 +16,17 @@
 # ScanConfig(static_key=True, upload="full64") and ScanConfig(upload="hi8")
 # (the cut, then the exact pass over the rows it flags), each checked
 # exactly and shown to launch its own kernels; then a second static scan
-# with the same key, which must run no nvcc. Every phase prints one line with its result and the elapsed
-# seconds; any failure raises, so the exit code is non-zero. The last
-# lines are the kernels' JSON line, the card's name and power limit, and
-# {"ok": true, "device": ...}. A watchdog ends a hung run with a stack
-# trace. Imports torch, numpy and cudasp_tpu_torch only.
+# with the same key, which must run no nvcc. It then holds the three
+# probe kernels (csrc/probe.cu: alu_kernel, bench_kernel, stage_kernel)
+# against their plain versions on the card, and drives the probe tools
+# (cudasp_tpu_torch.tools.alu_probe, microbench, stage_profile) at the
+# scan's launch width: the measured int32 multiply-add and field-product
+# rates, and the scan kernel's per-stage budget. Every phase prints one
+# line with its result and the elapsed seconds; any failure raises, so
+# the exit code is non-zero. The last lines are the kernels' JSON line,
+# the card's name and power limit, and {"ok": true, "device": ...}. A
+# watchdog ends a hung run with a stack trace. Imports torch, numpy and
+# cudasp_tpu_torch only.
 import faulthandler
 
 faulthandler.dump_traceback_later(1080, exit=True)
@@ -44,13 +50,26 @@ BLOCK_ROWS = 256
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM 3.35 TB/s; float32
 # outside the tensor cores 67 TFLOP/s = 33.5 T fused multiply-adds/s. The
 # int32 multiply-add pipe issues half the float32 lanes (64 of 128 a
-# clock per SM), so its peak is taken as 16.75 T multiply-adds/s.
+# clock per SM: 132 SMs x 64 x 1.98 GHz), so its peak is taken as
+# 16.75 T multiply-adds/s. The probe-time phase prints the rate that
+# tools/alu_probe's int32 mul+add reaches beside it, with the SM clock
+# under that load: a finding, not the bound.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 33.5e12 / 2
 # a 256-bit field product on the card: 64 32x32->64-bit multiply-adds for
 # the schoolbook, 8 more for the fold by 977
 IMAD_PER_PRODUCT = 72
 LADDERS = ("fixed", "wnaf", "static")
+# the probe kernels: the case each one's JSON entry times at the scan's
+# launch width, and its repeat count there (the plain version runs the
+# same launch on the card)
+PROBE_ENTRIES = {"alu_kernel": ("alu", "int32 mul+add", 1024),
+                 "bench_kernel": ("bench", "field mul", 256),
+                 "stage_kernel": ("stage", "ladder window", 4)}
+PROBE_REPLACES = {"alu_kernel": "tools/alu_probe.py:26",
+                  "bench_kernel": "tools/microbench.py:27",
+                  "stage_kernel": "tools/stage_profile.py:53"}
+PROBE_LANES = 4096
 CUTS = ("hi32", "hi16", "hi8")
 # the bits below each cut, flipped in the corrupted-outputs variant: a cut
 # still flags such a row, the exact wire does not
@@ -80,12 +99,29 @@ def phase(name, result):
           flush=True)
 
 
-def nvidia_smi():
+def nvidia_smi(query="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_under_load(x_alu):
+    """nvidia-smi's SM clock and maximum SM clock, read while the card
+    runs a queue of int32 mul+add probe launches (about a second of
+    work). The launches are taken back out of the count."""
+    import torch
+
+    from cudasp_tpu_torch.ops import probes as P
+
+    n = P.PROBES.launches["alu_kernel"]
+    op = P.ALU_OPS.index("int32 mul+add")
+    for _ in range(40):
+        P.alu(x_alu, op, 1 << 16)
+    clocks = nvidia_smi("clocks.sm,clocks.max.sm")
+    torch.cuda.synchronize()
+    P.PROBES.launches["alu_kernel"] = n
+    return clocks
 
 
 def make_dataset(n_rows, seed):
@@ -141,6 +177,26 @@ def ptxas_summary(log):
             out[cur] = f"{regs} registers, {out.get(cur, '')}"
             cur = None
     return out
+
+
+def probe_ptxas(log):
+    """The most registers and stack of any instantiation of each probe
+    kernel in a ptxas -v log."""
+    out, cur, stack = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"entry function '\S*?(alu|bench|stage)_kernel", ln)
+        if m:
+            cur, stack = m.group(1) + "_kernel", 0
+            continue
+        if cur and "stack frame" in ln:
+            stack = int(ln.split()[0])
+        elif cur and "Used" in ln and "registers" in ln:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            r0, s0 = out.get(cur, (0, 0))
+            out[cur] = (max(r0, regs), max(s0, stack))
+            cur = None
+    return {k: f"<= {r} registers, <= {st} B stack"
+            for k, (r, st) in out.items()}
 
 
 def pack_rows(table, rows, wire, live_rows=None, hi_only=None,
@@ -252,9 +308,10 @@ def golden_table(case):
 
 def build_all(static_keys):
     """Every kernel library of the run, all nvcc builds started together:
-    csrc/scan.cu (fixed + wnaf) and one static library per scan key.
-    Returns {digest: seconds until its library was loaded}."""
+    csrc/scan.cu (fixed + wnaf), csrc/probe.cu and one static library per
+    scan key. Returns {digest: seconds until its library was loaded}."""
     from cudasp_tpu_torch.ops import kernels as K
+    from cudasp_tpu_torch.ops import probes as P
     from cudasp_tpu_torch.ops import scalar as S
     from cudasp_tpu_torch.oracle.encoding import blob32_to_scalar
 
@@ -269,13 +326,123 @@ def build_all(static_keys):
         st.library(steps)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(scheds) + 1) as pool:
+    with ThreadPoolExecutor(len(scheds) + 2) as pool:
         fixed = pool.submit(K.KERNELS["fixed"].library)
+        probe = pool.submit(P.PROBES.library)
         futs = {d: pool.submit(one_static, s) for d, s in scheds.items()}
         fixed.result()
+        probe.result()
         secs = {d: f.result() for d, f in futs.items()}
     K.KERNELS["wnaf"].library()          # the same library as fixed
     return secs
+
+
+def probe_vs_plain(device, comb, lanes, repeats):
+    """Every case of each probe kernel against its plain version on the
+    card, on `lanes` lanes at each of `repeats` (field inv: 1), with 0
+    mismatches required. The comparison's launches are taken back out of
+    the kernels' counts. Returns {kernel: (mismatches, max |kernel -
+    plain|, cases)}."""
+    import numpy as np
+    import torch
+
+    from cudasp_tpu_torch.ops import probes as P
+
+    counts = dict(P.PROBES.launches)
+    rng = np.random.default_rng(SEED + lanes)
+    x_alu = P.to_device(P.raw_planes(rng, (8, lanes // 8), low=1), device)
+    raw = [P.to_device(P.raw_planes(rng, (8, lanes)), device)
+           for _ in "xy"]
+    fld = [P.to_device(P.field_planes(rng, lanes), device) for _ in "xy"]
+    res = {k: [0, 0, 0] for k in P.ProbeLibrary.KERNEL_NAMES}
+
+    def tally(kernel, name, iters, kout, pout):
+        torch.cuda.synchronize()
+        d = (kout.long() - pout.long()).abs()
+        mism = int((d != 0).sum())
+        if mism:
+            raise AssertionError(f"{kernel}/{name}/{iters} iters: {mism} "
+                                 f"mismatches of {d.numel()}")
+        r = res[kernel]
+        r[1] = max(r[1], int(d.max()))
+        r[2] += 1
+
+    for op, name in enumerate(P.ALU_OPS):
+        for it in repeats:
+            tally("alu_kernel", name, it, P.alu(x_alu, op, it),
+                  P.alu_plain(x_alu, op, it))
+    for case, (name, is_raw, _) in enumerate(P.BENCH_CASES):
+        x, y = raw if is_raw else fld
+        for it in (1,) if name.startswith("field inv") else repeats:
+            tally("bench_kernel", name, it, P.bench(x, y, case, it),
+                  P.bench_plain(x, y, case, it))
+    for index, name in enumerate(P.STAGES):
+        for it in repeats:
+            tally("stage_kernel", name, it,
+                  P.stage(*fld, index, it, comb),
+                  P.stage_plain(*fld, index, it, comb))
+    P.PROBES.launches.update(counts)
+    return res
+
+
+def probe_entries(device, comb):
+    """Each probe kernel's JSON numbers: its PROBE_ENTRIES case at the
+    scan's launch width, timed (CUDA events, best of 5) and held against
+    the plain version's run of the same launch on the card, whose field
+    products give the bound. The launches made here are taken back out
+    of the counts."""
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.ops import field as F
+    from cudasp_tpu_torch.ops import probes as P
+
+    counts = dict(P.PROBES.launches)
+    width = ct.api.TILE_CUDA
+    rng = np.random.default_rng(SEED + 1)
+    fld = [P.to_device(P.field_planes(rng, width), device) for _ in "xy"]
+    x_alu = P.to_device(P.raw_planes(rng, (8, width // 8), low=1), device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    out = {}
+    for kernel, (kind, case, iters) in PROBE_ENTRIES.items():
+        plane_bytes = fld[0].numel() * 4
+        if kind == "alu":
+            kern, plain, nbytes = P.alu, P.alu_plain, 2 * x_alu.numel() * 4
+            args = (x_alu, P.ALU_OPS.index(case), iters)
+        elif kind == "bench":
+            kern, plain, nbytes = P.bench, P.bench_plain, 3 * plane_bytes
+            args = (*fld, P.BENCH_NAMES.index(case), iters)
+        else:
+            kern, plain = P.stage, P.stage_plain
+            nbytes = 3 * plane_bytes + comb.numel() * 4
+            args = (*fld, P.STAGES.index(case), iters, comb)
+        ms = P.best_ms(lambda: kern(*args), device, 5)
+        kout = kern(*args)
+        F.PRODUCTS[0] = 0
+        ev[0].record()
+        pout = plain(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms = ev[0].elapsed_time(ev[1])
+        d = (kout.long() - pout.long()).abs()
+        if int((d != 0).sum()):
+            raise AssertionError(f"{kernel}/{case} at {width} lanes: "
+                                 f"{int((d != 0).sum())} mismatches")
+        # the ALU probe's bound is the multiply-add peak itself
+        ops = (P.NSTREAMS * x_alu.numel() * iters if kind == "alu"
+               else F.PRODUCTS[0] * IMAD_PER_PRODUCT)
+        by_ops = ops / IMAD_PER_S > nbytes / HBM_BYTES_PER_S
+        out[kernel] = {
+            "case": case, "lanes": width, "iters": iters, "ms": ms,
+            "plain_ms": plain_ms, "max_abs_err": int(d.max()),
+            "bound_ms": max(ops / IMAD_PER_S,
+                            nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if by_ops else "bytes",
+            "products": None if kind == "alu" else F.PRODUCTS[0]}
+        del kout, pout, d
+    P.PROBES.launches.update(counts)
+    return out
 
 
 def main():
@@ -320,6 +487,12 @@ def main():
           + " | ".join(f"{n}: {v}" for n, v in
                        ptxas_summary(st.build_log).items()))
     static_runs = st.nvcc_runs
+    from cudasp_tpu_torch.ops import probes as P
+    pb = P.PROBES.build_seconds
+    phase("build-probe", "csrc/probe.cu (alu, bench, stage kernels): "
+          + ("cached" if pb is None else f"nvcc {pb:.1f} s") + " | "
+          + " | ".join(f"{n}: {v}" for n, v in
+                       probe_ptxas(P.PROBES.build_log).items()))
 
     # --- kernel vs plain on the card -------------------------------------
     # tallies by kernel: each ladder's exact wires, and "hi" (K12) for
@@ -530,6 +703,84 @@ def main():
     phase("static-cache", "warm-up, main path and a second static scan "
           "with the same key: 0 nvcc runs after the build")
 
+    # --- the probe kernels: each case against its plain version, then
+    # the probe tools' own run at the scan's launch width -----------------
+    from cudasp_tpu_torch.tools import alu_probe, microbench, stage_profile
+
+    t0 = time.perf_counter()
+    comb = K.comb_table("cuda")
+    pv = {k: [0, 0, 0] for k in P.ProbeLibrary.KERNEL_NAMES}
+    # every case at 1 and 3 repeats on a few lanes, then once more at the
+    # scan's launch width, the width the probe tools run at
+    for lanes, repeats in ((PROBE_LANES, (1, 3)), (width, (1,))):
+        res = probe_vs_plain(torch.device("cuda"), comb, lanes, repeats)
+        for k, v in res.items():
+            pv[k] = [pv[k][0] + v[0], max(pv[k][1], v[1]), pv[k][2] + v[2]]
+        phase("probe-vs-plain", f"{lanes} lanes, repeats {repeats}: "
+              + ", ".join(f"{k} {v[2]} cases, mismatches {v[0]}, max "
+                          f"|err| {v[1]}" for k, v in res.items())
+              + f" [{time.perf_counter() - t0:.1f} s]")
+        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    for name in P.PROBES.launches:
+        P.PROBES.launches[name] = 0
+    for kern in K.KERNELS.values():
+        kern.launches = kern.hi_launches = 0
+    alu = alu_probe.main([])
+    bench = microbench.main([])
+    stages = stage_profile.main([])
+    torch.cuda.synchronize()
+    probe_launches = dict(P.PROBES.launches)
+    full_launches = K.KERNELS["fixed"].launches
+    if min(probe_launches.values()) <= 0 or full_launches <= 0:
+        raise AssertionError(f"probe tools: launches {probe_launches}, "
+                             f"scan kernel {full_launches}")
+    imad = alu["int32 mul+add"]["ops_per_s"]
+    fmul = bench["field mul"]["per_s"]
+    implied = IMAD_PER_S / IMAD_PER_PRODUCT
+    x_alu = P.to_device(P.raw_planes(np.random.default_rng(SEED),
+                                     (8, width // 8), low=1), "cuda")
+    clocks = sm_clock_under_load(x_alu)
+    sm_mhz = float(clocks.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    at_clock = 64 * sms * sm_mhz * 1e6
+    phase("probe-time", f"tools at {width} lanes: launches "
+          f"{probe_launches} (+ {full_launches} scan launches for FULL); "
+          f"int32 mul+add {imad / 1e12:.3f} T/s measured against the "
+          f"peak IMAD_PER_S {IMAD_PER_S / 1e12:.3f} T/s ({imad / IMAD_PER_S:.3f}"
+          f"x); SM clock under that load, max: {clocks}; 64 x {sms} SMs "
+          f"at that clock {at_clock / 1e12:.3f} T/s ({imad / at_clock:.3f}"
+          f"x); field mul {fmul / 1e9:.1f} G products/s measured against "
+          f"{implied / 1e9:.1f} G implied ({fmul / implied:.3f}x); stages "
+          + ", ".join(f"{n} {stages[n]['ns_per_row']:.2f}"
+                      for n in P.STAGES)
+          + f" ns/row; budget {stages['budget']['ns_per_row']:.2f} against "
+          f"FULL {stages['FULL']['ns_per_row']:.2f} ns/row "
+          f"({stages['budget']['share']:.1%}) | {smi} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    probes = probe_entries(torch.device("cuda"), comb)
+    phase("probe-entries", " | ".join(
+        f"{k} ({v['case']}, {v['iters']} repeats, {v['lanes']} lanes): "
+        f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.1f} ms, bound "
+        f"{v['bound_ms']:.4f} ms by {v['bound_by']}"
+        for k, v in probes.items()) + f" | {smi} "
+        f"[{time.perf_counter() - t0:.1f} s]")
+
+    def probe_entry(name):
+        v = probes[name]
+        return {
+            "name": name, "route": "cuda",
+            "source": "cudasp_tpu_torch/csrc/probe.cu",
+            "replaces": PROBE_REPLACES[name],
+            "launches": probe_launches[name],
+            "mismatches": pv[name][0], "cases": pv[name][2],
+            "max_abs_err": max(pv[name][1], v["max_abs_err"]),
+            "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": None, "case": v["case"], "iters": v["iters"],
+            "lanes": v["lanes"], "products": v["products"]}
+
     def entry(name):
         _, ladder, wire = MAIN_PATHS[name]
         t = timing[ladder, wire]
@@ -556,7 +807,8 @@ def main():
                       for lad in LADDERS for hi in CUTS})
         return e
 
-    print(json.dumps({"kernels": [entry(name) for name in MAIN_PATHS]}),
+    print(json.dumps({"kernels": [entry(name) for name in MAIN_PATHS]
+                      + [probe_entry(name) for name in PROBE_ENTRIES]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

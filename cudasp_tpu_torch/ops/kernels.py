@@ -193,6 +193,22 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & 0xFFFFFFFF
 
 
+def odd_chain(x, y):
+    """The odd multiples 3P..15P of the affine point (x, y) by a Co-Z
+    chain from 2P, as csrc/secp256k1.cuh's build_table forms them:
+    ([(x, y, z)] Jacobian, their z inverted by one batched inversion)."""
+    d2x, d2y, d2z = C.dbl(x, y, F.one_like(x))
+    t = F.sqr(d2z)
+    ox, oy = F.mul(x, t), F.mul(y, F.mul(t, d2z))
+    dx, dy, z = d2x, d2y, d2z
+    chain = []
+    for _ in range(7):
+        nx, ny, dx, dy, z = C.zaddu(dx, dy, ox, oy, z)
+        chain.append((nx, ny, z))
+        ox, oy = nx, ny
+    return chain, F.inv_many([c[2] for c in chain])
+
+
 def stage_ecdh(tweak_words, ovm, digits, wire, ladder="fixed",
                static_sched=None):
     """Tweak words -> scan key x tweak point (Jacobian, (B, 16) each), by
@@ -206,17 +222,8 @@ def stage_ecdh(tweak_words, ovm, digits, wire, ladder="fixed",
         y0 = F.sqrt_candidate(F.add(F.mul(F.sqr(x), x), F.const(7, x)))
         y = F.select(F.parity(y0) == want_odd, y0, F.neg(y0))
     one = F.one_like(x)
-    # affine odd multiples (2m+1) P by a Co-Z chain and one inversion
-    d2x, d2y, d2z = C.dbl(x, y, one)
-    t = F.sqr(d2z)
-    ox, oy = F.mul(x, t), F.mul(y, F.mul(t, d2z))
-    dx, dy, z = d2x, d2y, d2z
-    chain = []
-    for _ in range(7):
-        nx, ny, dx, dy, z = C.zaddu(dx, dy, ox, oy, z)
-        chain.append((nx, ny, z))
-        ox, oy = nx, ny
-    zinv = F.inv_many([c[2] for c in chain])
+    # affine odd multiples (2m+1) P
+    chain, zinv = odd_chain(x, y)
     tx, ty = [x], [y]
     for (cx, cy, _), zi in zip(chain, zinv):
         zi2 = F.sqr(zi)
@@ -457,6 +464,67 @@ def _redact(log: str) -> str:
                      if "Step<" not in ln and "StepIL" not in ln)
 
 
+def _build_tag() -> str:
+    return f"{os.getpid()}.{threading.get_ident()}"
+
+
+def find_nvcc() -> str:
+    """The CUDA toolkit's nvcc (on PATH, else NVCC_DEFAULT), or
+    RuntimeError: a kernel is never replaced by its plain version."""
+    nvcc = shutil.which("nvcc") or NVCC_DEFAULT
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the kernels are built with the "
+                           "CUDA toolkit's nvcc")
+    return nvcc
+
+
+def nvcc_build(nvcc, src, so, *, generated=False):
+    """Compile `src` with NVCC_FLAGS (-I csrc) into the shared library
+    `so`: written under a temporary name, then renamed, with nvcc's log in
+    nvcc.log beside it. A generated source (a per-key unit) is deleted
+    once nvcc has read it and its log is redacted. Returns (seconds, log);
+    raises RuntimeError with the log when nvcc fails, leaving no
+    library."""
+    tmp = f"{so}.{_build_tag()}.tmp"
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, src],
+            capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+    finally:
+        if generated:
+            os.remove(src)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if generated:
+        log = _redact(log)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    with open(os.path.join(os.path.dirname(so), "nvcc.log"), "w") as f:
+        f.write(log)
+    os.replace(tmp, so)
+    return seconds, log
+
+
+def source_library(src, sources, so_name):
+    """The library nvcc builds from csrc/`src` into build/cudasp_tpu_torch/
+    <sha256 of the nvcc flags and csrc/`sources`>/`so_name`, built there
+    if it is missing, loaded with ctypes. Returns (library, (seconds, log)
+    of the nvcc build, or None when the library was found built)."""
+    digest = _hash_sources(hashlib.sha256(" ".join(NVCC_FLAGS).encode()),
+                           sources).hexdigest()[:16]
+    out_dir = os.path.join(_BUILD_ROOT, digest)
+    so = os.path.join(out_dir, so_name)
+    build = None
+    if not os.path.exists(so):
+        nvcc = find_nvcc()
+        os.makedirs(out_dir, exist_ok=True)
+        build = nvcc_build(nvcc, os.path.join(_CSRC, src), so)
+    return ctypes.CDLL(so), build
+
+
 class ScanKernel:
     """One ladder of the scan kernel, built at first use with nvcc and
     bound with ctypes. "fixed" and "wnaf" are two instantiations in one
@@ -496,17 +564,14 @@ class ScanKernel:
         if lib is not None:
             return lib
         if steps is None:
-            digest = _hash_sources(hashlib.sha256(
-                " ".join(NVCC_FLAGS).encode()), _SOURCES).hexdigest()[:16]
-            out_dir = os.path.join(_BUILD_ROOT, digest)
-            so = os.path.join(out_dir, "libcudasp_scan.so")
+            lib, build = source_library("scan.cu", _SOURCES,
+                                        "libcudasp_scan.so")
         else:
-            out_dir = os.path.join(_BUILD_ROOT, "static",
-                                   static_digest(steps))
-            so = os.path.join(out_dir, "libcudasp_scan_static.so")
-        if not os.path.exists(so):
-            self._build(out_dir, so, steps)
-        lib = ctypes.CDLL(so)
+            lib, build = self._static_library(steps)
+        if build is not None:
+            with self._lock:
+                self.nvcc_runs += 1
+                self.build_seconds, self.build_log = build
         vp, ci = ctypes.c_void_p, ctypes.c_int
         tail = [vp, vp, ci, vp, vp] + [ci] * 6 + [vp, vp]
         if steps is None:
@@ -519,46 +584,23 @@ class ScanKernel:
         with self._lock:
             return self._libs.setdefault(steps, lib)
 
-    def _build(self, out_dir, so, steps):
-        nvcc = shutil.which("nvcc") or NVCC_DEFAULT
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the scan kernel is "
-                               "built with the CUDA toolkit's nvcc")
-        tag = f"{os.getpid()}.{threading.get_ident()}"
-        if steps is None:
-            os.makedirs(out_dir, exist_ok=True)
-            src = os.path.join(_CSRC, "scan.cu")
-        else:
+    @staticmethod
+    def _static_library(steps):
+        """One key's library, built from a generated unit if missing, as
+        source_library returns it."""
+        out_dir = os.path.join(_BUILD_ROOT, "static", static_digest(steps))
+        so = os.path.join(out_dir, "libcudasp_scan_static.so")
+        build = None
+        if not os.path.exists(so):
+            nvcc = find_nvcc()
             _private_dir(os.path.dirname(out_dir))
             _private_dir(out_dir)
-            src = os.path.join(out_dir, f"key.{tag}.cu")
+            src = os.path.join(out_dir, f"key.{_build_tag()}.cu")
             fd = os.open(src, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
             with os.fdopen(fd, "w") as f:
                 f.write(static_source(steps))
-        tmp = f"{so}.{tag}.tmp"
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, src],
-                capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-        finally:
-            if steps is not None:
-                os.remove(src)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if steps is not None:
-            log = _redact(log)
-        if proc.returncode != 0:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
-            f.write(log)
-        os.replace(tmp, so)
-        with self._lock:
-            self.nvcc_runs += 1
-            self.build_seconds = seconds
-            self.build_log = log
+            build = nvcc_build(nvcc, src, so, generated=True)
+        return ctypes.CDLL(so), build
 
     def launch(self, tweak_words, outputs_hi, outputs_lo, outputs_mask,
                digits, static_sched, spend, labels, comb, blockmask, *,
