@@ -21,7 +21,16 @@
 # against their plain versions on the card, and drives the probe tools
 # (cudasp_tpu_torch.tools.alu_probe, microbench, stage_profile) at the
 # scan's launch width: the measured int32 multiply-add and field-product
-# rates, and the scan kernel's per-stage budget. Every phase prints one
+# rates, and the scan kernel's per-stage budget. The sharded scan
+# (ops.kernels.scan_flags_sharded: one launch of the same kernel per mesh
+# entry) is held bit for bit against the single launch on every ladder
+# and on the x, xy and hi8 wires, over a 4-entry mesh on cuda:0 (and over
+# every card, where there are several), against its plain version at
+# 4,096 lanes, and timed against the single launch; then the 2,300,000-row
+# table is scanned over make_mesh() (every card), over the 4-entry mesh,
+# over that mesh with the row exchange (rebalance=True) and on hi8, and a
+# 20,000-row table by two processes on gloo (parallel.distributed.
+# multihost_scan), each merge exact. Every phase prints one
 # line with its result and the elapsed seconds; any failure raises, so
 # the exit code is non-zero. The last lines are the kernels' JSON line,
 # the card's name and power limit, and {"ok": true, "device": ...}. A
@@ -200,7 +209,7 @@ def probe_ptxas(log):
 
 
 def pack_rows(table, rows, wire, live_rows=None, hi_only=None,
-              below=0):
+              below=0, block_rows=BLOCK_ROWS):
     """The first `rows` rows of a table as device planes, the way the
     executor packs them, on the x / xy wire or a cut (hi_only). live_rows:
     rows past this index fall in blockmask-dead tiles. below: a mask
@@ -217,13 +226,13 @@ def pack_rows(table, rows, wire, live_rows=None, hi_only=None,
                                 int(np.diff(offs[:rows + 1]).max())))
     planes = K.pack_batch_arrays(b.tweak_blobs, b.row_valid, b.outputs_hi,
                                  b.outputs_lo, b.outputs_valid,
-                                 block_rows=BLOCK_ROWS, wire=wire,
+                                 block_rows=block_rows, wire=wire,
                                  hi_only=hi_only)
     bmask = None
     if live_rows is not None:
         width = planes[0].shape[1]
-        bmask = dev_tensor(K.live_blockmask(live_rows, width // BLOCK_ROWS,
-                                            BLOCK_ROWS))
+        bmask = dev_tensor(K.live_blockmask(live_rows, width // block_rows,
+                                            block_rows))
     return [dev_tensor(p) for p in planes], bmask
 
 
@@ -443,6 +452,478 @@ def probe_entries(device, comb):
         del kout, pout, d
     P.PROBES.launches.update(counts)
     return out
+
+
+def golden_wide(case, width):
+    """`width` rows cycling through a golden case's rows (so that every
+    shard of a mesh has live rows), and the set of rows that match."""
+    import dataclasses
+
+    rows = [case.rows[j % len(case.rows)] for j in range(width)]
+    tab = golden_table(dataclasses.replace(case, rows=tuple(rows)))
+    expect = {j for j, r in enumerate(rows)
+              if r.height in case.expected_heights}
+    return tab, expect
+
+
+def sharded_plain(mesh, planes, bmask, q, ladder, wire, hi_only=None,
+                  nout=None, block_rows=BLOCK_ROWS):
+    """The sharded scan's plain version on the card: scan_plain over each
+    entry's lane shard (cut dummies replicated), flags in lane order."""
+    import torch
+
+    from cudasp_tpu_torch.ops import kernels as K
+    from cudasp_tpu_torch.parallel.mesh import BatchShardings
+
+    sched, sp, lab, comb = q
+    digits, static = sched.operands(ladder)
+    sh = BatchShardings(mesh)
+    tw, oh = sh.lanes(planes[0]), sh.lanes(planes[1])
+    ol = sh.lanes(planes[2]) if not hi_only else [planes[2]] * mesh.size
+    ovm = (sh.lanes(planes[3]) if hi_only not in K.HI_UNITS
+           else [planes[3]] * mesh.size)
+    bm = [None] * mesh.size if bmask is None else sh.lanes(bmask)
+    return torch.cat([K.scan_plain(
+        tw[k], oh[k], ol[k], ovm[k], digits, sp, lab, comb, bm[k],
+        wire=wire, block_rows=block_rows, ladder=ladder,
+        static_sched=static, hi_only=hi_only, nout=nout)
+        for k in range(mesh.size)], dim=1)
+
+
+def sharded_vs_single(name, mesh, ladder, planes, bmask, q, wire, expect,
+                      hi_only=None, nout=None, pack_flags=True,
+                      block_rows=BLOCK_ROWS):
+    """scan_flags_sharded over `mesh` against the single launch on the same
+    device tensors: the raw flags (packed words or int8) bit for bit, and
+    their rows == `expect` (a cut: containing it). The launches made here
+    are taken back out of the counts. Returns (mismatched rows, rows
+    flagged)."""
+    import numpy as np
+    import torch
+
+    from cudasp_tpu_torch.ops import kernels as K
+
+    sched, sp, lab, comb = q
+    digits, static = sched.operands(ladder)
+    kern = K.KERNELS[ladder]
+    counts = kern.launches, kern.hi_launches, K.SHARDED.launches
+    kw = dict(block_rows=block_rows, wire=wire, pack_flags=pack_flags,
+              ladder=ladder, static_sched=static, hi_only=hi_only, nout=nout)
+    single = K.scan_flags(*planes, digits, sp, lab, comb, bmask, **kw)
+    shard = K.scan_flags_sharded(mesh, *planes, digits, sp, lab, comb, bmask,
+                                 **kw)
+    torch.cuda.synchronize()
+    kern.launches, kern.hi_launches, K.SHARDED.launches = counts
+    width = planes[0].shape[1]
+    sb = K.flags_to_bool(shard.cpu().numpy(), width)
+    mism = int((sb != K.flags_to_bool(single.cpu().numpy(), width)).sum())
+    got = set(np.flatnonzero(sb).tolist())
+    if mism or shard.dtype != single.dtype or not torch.equal(shard, single) \
+            or not (got >= set(expect) if hi_only else got == set(expect)):
+        raise AssertionError(
+            f"sharded {name}/{ladder}/{hi_only or wire}: {mism} rows differ "
+            f"from the single launch; rows {sorted(got)[:10]}, expected "
+            f"{sorted(expect)[:10]}")
+    return mism, len(got)
+
+
+def sync_all():
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def wall_ms(fn, reps=10):
+    """ms a call of fn by the host clock around `reps` calls that end in
+    synchronising every card (after one untimed call)."""
+    fn()
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sharded_phase(table, planted, key, spend, smi):
+    """sharded-vs-single: every ladder on the x, xy and hi8 wires, on the
+    golden cases (1,024 lanes) and on the main path's 262,144-row random
+    batch, a 4-entry mesh on cuda:0 (and the all-cards mesh where there
+    are several cards) against the single launch; a shard width that
+    reads int8 flags; the kernel against its plain version at 4,096 lanes
+    with a dead shard; and the 262,144-row batch timed, sharded against
+    single, with the plain version's time and products. Returns the JSON
+    numbers of the sharded scan."""
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.ops import field as F
+    from cudasp_tpu_torch.ops import kernels as K
+    from cudasp_tpu_torch.oracle import vectors as V
+    from cudasp_tpu_torch.parallel.mesh import BatchShardings, make_mesh
+
+    t0 = time.perf_counter()
+    mesh4 = make_mesh(devices=["cuda:0"] * 4)
+    meshes = [mesh4] + ([make_mesh()] if torch.cuda.device_count() > 1
+                        else [])
+    wires = (("x", None), ("xy", None), ("x", "hi8"))
+    checks = 0
+    for case in V.CASES:
+        tab, expect = golden_wide(case, 1024)
+        q = query(case.scan_key_blob, case.spend_blob, case.label_blobs)
+        nout = int(np.diff(tab["outputs"][1]).max())
+        for wire, hi in wires:
+            planes, _ = pack_rows(tab, 1024, wire, hi_only=hi)
+            for ladder in LADDERS:
+                for mesh in meshes:
+                    sharded_vs_single(case.name, mesh, ladder, planes, None,
+                                      q, wire, expect, hi_only=hi,
+                                      nout=nout)
+                    checks += 1
+    width = ct.api.TILE_CUDA
+    q = query(key, spend, ())
+    exp_w = set(planted[planted < width].tolist())
+    flagged = {}
+    for wire, hi in wires:
+        planes, _ = pack_rows(table, width, wire, hi_only=hi)
+        for ladder in LADDERS:
+            for mesh in meshes:
+                _, n = sharded_vs_single("random", mesh, ladder, planes, None,
+                                         q, wire, exp_w, hi_only=hi,
+                                         nout=OUTPUTS_PER_ROW)
+                checks += 1
+            flagged[f"{ladder}/{hi or wire}"] = n
+        del planes
+    # shards of 240 lanes (not a multiple of 32): int8 flags; tiles of 48
+    # rows from row 912 on are dead
+    planes, bmask = pack_rows(table, 960, "x", live_rows=900, block_rows=48)
+    exp_i8 = set(planted[planted < 912].tolist())
+    for ladder in LADDERS:
+        sharded_vs_single("int8", mesh4, ladder, planes, bmask, q, "x",
+                          exp_i8, pack_flags=False, block_rows=48)
+        checks += 1
+    phase("sharded-vs-single", f"{checks} comparisons over "
+          f"{[str(m) for m in meshes]}: golden cases x {len(LADDERS)} "
+          f"ladders x wires x/xy/hi8 at 1,024 lanes, the {width}-row batch "
+          f"(rows flagged {flagged}), 240-lane int8 shards: 0 rows differ "
+          f"from the single launch [{time.perf_counter() - t0:.1f} s]")
+
+    # the kernel against its plain version at 4,096 lanes: tiles from row
+    # 2,816 on are dead, so the last of the four shards is all padding and
+    # the third has a dead tile
+    t0 = time.perf_counter()
+    planes, bmask = pack_rows(table, PROBE_LANES, "x", live_rows=2600)
+    exp_p = set(planted[planted < 11 * BLOCK_ROWS].tolist())
+    mism = err = 0
+    for ladder in LADDERS:
+        for hi in (None, "hi8") if ladder == "fixed" else (None,):
+            p = (pack_rows(table, PROBE_LANES, "x", hi_only=hi)[0] if hi
+                 else planes)
+            kern = K.KERNELS[ladder]
+            counts = kern.launches, kern.hi_launches, K.SHARDED.launches
+            sched, sp, lab, comb = q
+            digits, static = sched.operands(ladder)
+            kf = K.scan_flags_sharded(
+                mesh4, *p, digits, sp, lab, comb, bmask, pack_flags=True,
+                ladder=ladder, static_sched=static, hi_only=hi,
+                nout=OUTPUTS_PER_ROW)
+            torch.cuda.synchronize()
+            kern.launches, kern.hi_launches, K.SHARDED.launches = counts
+            pf = sharded_plain(mesh4, p, bmask, q, ladder, "x", hi_only=hi,
+                               nout=OUTPUTS_PER_ROW)
+            r = check(f"sharded-plain/{ladder}/{hi or 'x'}", kf,
+                      K.pack_flag_words(pf), PROBE_LANES, exp_p,
+                      superset=hi is not None)
+            mism, err = mism + r[0], max(err, r[1])
+    phase("sharded-vs-plain", f"{PROBE_LANES} lanes over {mesh4}, a dead "
+          f"shard, every ladder (fixed also on hi8): kernel == plain, "
+          f"mismatches {mism} [{time.perf_counter() - t0:.1f} s]")
+
+    # time: the 262,144-row batch, single launch against sharded, in turns
+    t0 = time.perf_counter()
+    planes, _ = pack_rows(table, width, "x")
+    sched, sp, lab, comb = q
+    digits, _ = sched.operands("fixed")
+    kern = K.KERNELS["fixed"]
+    counts = kern.launches, kern.hi_launches, K.SHARDED.launches
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    reps = 10
+
+    def timed(fn):
+        fn()
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    def single():
+        return K.scan_flags(*planes, digits, sp, lab, comb, pack_flags=True)
+
+    def sharded():
+        return K.scan_flags_sharded(mesh4, *planes, digits, sp, lab, comb,
+                                    pack_flags=True)
+
+    runs = {"single": [], "sharded": []}
+    for which in ("single", "sharded", "sharded", "single"):
+        runs[which].append(timed(single if which == "single" else sharded))
+    all_cards = None
+    if len(meshes) > 1:
+        # over every card: the shards already on their cards; events do
+        # not span cards, so the host clock around work that ends in
+        # synchronising every card, in turns with the single launch
+        mesh_all = meshes[1]
+        sh = BatchShardings(mesh_all)
+        shards = [sh.lanes(p) for p in planes]
+        rep = [sh.replicated(x) for x in (sp, lab, comb)]
+        runs_all = {"single": [], "sharded": []}
+        for which in ("single", "sharded", "sharded", "single"):
+            runs_all[which].append(wall_ms(
+                single if which == "single" else
+                lambda: K.scan_flags_sharded(mesh_all, *shards, digits, *rep,
+                                             pack_flags=True)))
+        all_cards = {"cards": mesh_all.size,
+                     "ms": float(np.mean(runs_all["sharded"])),
+                     "single_ms": float(np.mean(runs_all["single"])),
+                     "runs_ms": runs_all}
+        phase("sharded-time", f"fixed/x, {width} rows over {mesh_all}, "
+              f"shards on their cards, host clock: sharded "
+              f"{all_cards['ms']:.3f} ms against the single launch "
+              f"{all_cards['single_ms']:.3f} ms ({runs_all}), speedup "
+              f"{all_cards['single_ms'] / all_cards['ms']:.3f} | {smi}")
+        del shards, rep
+    kf = sharded()
+    torch.cuda.synchronize()
+    kern.launches, kern.hi_launches, K.SHARDED.launches = counts
+    F.PRODUCTS[0] = 0
+    ev[0].record()
+    pf = sharded_plain(mesh4, planes, None, q, "fixed", "x")
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    products = F.PRODUCTS[0]
+    r = check("sharded-main-batch/fixed/x", kf, K.pack_flag_words(pf), width,
+              exp_w)
+    mism, err = mism + r[0], max(err, r[1])
+    del pf
+    nbytes = (sum(p.numel() * 4 for p in planes) + width // 8
+              + mesh4.size * (comb.numel() * 4 + sp.numel() * 4))
+    ops = products * IMAD_PER_PRODUCT
+    by_ops = ops / IMAD_PER_S > nbytes / HBM_BYTES_PER_S
+    out = {"ms": float(np.mean(runs["sharded"])),
+           "single_ms": float(np.mean(runs["single"])),
+           "runs_ms": runs, "plain_ms": plain_ms,
+           "products_per_row": products / width,
+           "bound_ms": max(ops / IMAD_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+           "bound_by": "operations" if by_ops else "bytes",
+           "mismatches": mism, "max_abs_err": err, "checks": checks,
+           "all_cards": all_cards}
+    phase("sharded-time", f"fixed/x, {width} rows over {mesh4}: sharded "
+          f"{out['ms']:.3f} ms ({runs['sharded']}) against the single "
+          f"launch {out['single_ms']:.3f} ms ({runs['single']}), ratio "
+          f"{out['ms'] / out['single_ms']:.4f}; plain fan-out "
+          f"{plain_ms:.1f} ms, {out['products_per_row']:.0f} field products "
+          f"a row, bound {out['bound_ms']:.3f} ms by {out['bound_by']} | "
+          f"{smi} [{time.perf_counter() - t0:.1f} s]")
+    return out
+
+
+def mesh_main_paths(table, planted, key, spend, smi):
+    """mesh-main-path: the 2,300,000-row table over make_mesh() (every
+    card), over 4 entries on cuda:0, that mesh with rebalance=True, and
+    on hi8; each must return exactly the planted rows through the sharded
+    scan, with the counts set to 0 just before each scan and read just
+    after; with several cards, over every card also with rebalance=True
+    and on hi8; and the exchange alone at the main batch shape. Returns
+    ({path: sharded launches}, exchange timing)."""
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.ops import kernels as K
+    from cudasp_tpu_torch.parallel.mesh import make_mesh
+
+    ncards = torch.cuda.device_count()
+    mesh4 = make_mesh(devices=["cuda:0"] * 4)
+    paths = {"all-cards": dict(mesh=make_mesh()),
+             "mesh4": dict(mesh=mesh4),
+             "mesh4-rebalance": dict(mesh=mesh4, rebalance=True),
+             "mesh4-hi8": dict(mesh=mesh4, upload="hi8")}
+    if ncards > 1:
+        paths.update({
+            "all-cards-rebalance": dict(mesh=make_mesh(), rebalance=True),
+            "all-cards-hi8": dict(mesh=make_mesh(), upload="hi8")})
+    head = {k: (v[:4096] if k != "outputs" else
+                (v[0][:4096 * OUTPUTS_PER_ROW], v[1][:4097]))
+            for k, v in table.items()}
+    # the exchange alone on the main path's batch shape, as the executor
+    # hands it over (per-entry shards of the 17 int32 rows of the full
+    # wire at 3 outputs and the source rows), on a quiet card
+    from cudasp_tpu_torch.parallel import exchange as X
+    from cudasp_tpu_torch.parallel.mesh import BatchShardings
+
+    width = ct.api.TILE_CUDA
+    planes, _ = pack_rows(table, width, "x")
+    src = dev_tensor(np.arange(2 * width, dtype=np.int32).reshape(2, width))
+    xbytes = sum(p.numel() * 4 for p in planes) + src.numel() * 4
+    exchange = {}
+    for label, mesh in [("mesh4", mesh4)] + (
+            [("all-cards", paths["all-cards"]["mesh"])] if ncards > 1
+            else []):
+        sh = BatchShardings(mesh)
+        ops = [sh.lanes(p) for p in (*planes[:3], src[:1], src[1:],
+                                      planes[3])]
+        ms = wall_ms(lambda: X.rebalance(mesh, *ops, block_rows=BLOCK_ROWS))
+        t0 = time.perf_counter()
+        X.rebalance(mesh, *ops, block_rows=BLOCK_ROWS)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        sync_all()
+        exchange[label] = {"ms": ms, "host_ms": host_ms, "bytes": xbytes}
+        phase("exchange", f"rebalance of {width} rows over {mesh} (17 int32 "
+              f"rows of planes, {xbytes / 1e6:.1f} MB): {ms:.3f} ms a batch "
+              f"(host clock around 10 that end in synchronising every "
+              f"card, on a quiet card), {host_ms:.3f} ms of host time to "
+              f"issue one | {smi}")
+        del ops
+    del planes, src
+
+    launches = {}
+    for name, fields in paths.items():
+        ct.scan(head, key, spend, config=ct.ScanConfig(**fields))  # warm-up
+        for kern in K.KERNELS.values():
+            kern.launches = kern.hi_launches = 0
+        K.SHARDED.launches = 0
+        t0 = time.perf_counter()
+        res = ct.scan(table, key, spend, config=ct.ScanConfig(**fields))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {n: kern.launches for n, kern in K.KERNELS.items()}
+        cut = K.KERNELS["fixed"].hi_launches
+        sharded = K.SHARDED.launches
+        if not np.array_equal(res.indices, planted) or not np.array_equal(
+                res.height, planted + 800_000):
+            raise AssertionError(
+                f"mesh path {name}: {len(res.indices)} matches, expected "
+                f"{len(planted)}; first differences "
+                f"{np.setxor1d(res.indices, planted)[:10].tolist()}")
+        # every launch of the path went through the sharded wrapper, on
+        # the fixed ladder; hi8 ran K12 and the exact pass
+        if sharded <= 0 or sharded != counts["fixed"] or counts["wnaf"] \
+                or counts["static"] or (name.endswith("hi8") and (
+                    cut <= 0 or cut >= sharded)):
+            raise AssertionError(f"mesh path {name}: sharded launches "
+                                 f"{sharded}, kernel launches {counts}, "
+                                 f"{cut} on a cut wire")
+        launches[name] = sharded
+        m = res.metrics
+        size = fields["mesh"].size
+        extra = ""
+        if fields.get("rebalance"):
+            extra = (f"; exchange {m.exchange_seconds / m.batches * 1e3:.3f}"
+                     f" ms a batch by events (last entry ready to last "
+                     f"exchanged), "
+                     f"{m.exchange_bytes / m.batches / 1e6:.1f} MB of planes "
+                     f"a batch")
+        elif fields.get("upload"):
+            extra = (f"; K12 launches {cut}, reverified_rows "
+                     f"{m.reverified_rows}")
+        phase("mesh-main-path", f"{name} ({fields['mesh']}"
+              + (", rebalance" if fields.get("rebalance") else "")
+              + (f", upload {fields['upload']}" if fields.get("upload")
+                 else "")
+              + f"): {MAIN_ROWS} rows in {secs:.3f} s = "
+              f"{MAIN_ROWS / secs:,.0f} tx/s; {len(res.indices)} matches == "
+              f"planted; sharded launches {sharded} ({sharded / size:g} a "
+              f"shard over {m.batches} batches), kernel launches {counts}; "
+              f"upload {m.upload_mode}, {m.batch_size} rows a batch; pack "
+              f"{m.pack_seconds:.3f} s, staging {m.upload_seconds:.3f} s, H2D "
+              f"{m.h2d_seconds:.4f} s, device wait "
+              f"{m.device_wait_seconds:.3f} s, "
+              f"{m.upload_bytes / 1e6:.1f} MB up{extra} | {smi}")
+    if ncards > 1:
+        phase("all-cards", f"the all-cards mesh ran over {ncards} cards")
+    else:
+        phase("all-cards", "only one card is present: the all-cards mesh "
+              "is a one-entry mesh; no multi-card number was measured")
+    return launches, exchange
+
+
+MULTIHOST_ROWS = 20_000
+
+
+def multihost_worker(pid, nproc, port):
+    """One process of the multihost phase: its hash part of a seeded
+    20,000-row table scanned on cuda:0, merged over gloo; prints one JSON
+    line."""
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.ops import kernels as K
+    from cudasp_tpu_torch.parallel import distributed as D
+    from cudasp_tpu_torch.parallel.mesh import make_mesh
+
+    key, spend, table, planted = make_dataset(MULTIHOST_ROWS, SEED)
+    # 32-byte txids: multihost_scan hashes a txid's bytes, as the JAX
+    # package's does (an integer column would become bytes(int) there)
+    txid = np.zeros((MULTIHOST_ROWS, 32), np.uint8)
+    txid[:, :8] = table["txid"].astype("<u8")[:, None].view(np.uint8)
+    table["txid"] = txid
+    D.init(coordinator_address=f"127.0.0.1:{port}", num_processes=nproc,
+           process_id=pid)
+    t0 = time.perf_counter()
+    got = D.multihost_scan(table, key, spend, config=ct.ScanConfig(
+        mesh=make_mesh(devices=["cuda:0"])))
+    secs = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"pid": pid, "ok": bool(np.array_equal(got, planted)),
+                      "matches": len(got), "planted": len(planted),
+                      "sharded_launches": K.SHARDED.launches,
+                      "seconds": secs}), flush=True)
+    return 0
+
+
+def multihost_phase():
+    """multihost: two processes with gloo, both on cuda:0, scan a seeded
+    20,000-row table by multihost_scan; each merge must equal the planted
+    rows. Every process started here is ended here."""
+    import socket
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         str(pid), "2", port], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = []
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost worker failed "
+                                 f"({p.returncode}):\n{out}\n{err[-3000:]}")
+        line = json.loads(out.strip().splitlines()[-1])
+        # each process scanned its part through the sharded kernel
+        if not line["ok"] or line["sharded_launches"] <= 0:
+            raise AssertionError(f"multihost worker: {line}")
+        lines.append(line)
+    phase("multihost", f"2 processes (gloo, both on cuda:0), "
+          f"{MULTIHOST_ROWS} rows: merges == planted on both "
+          f"({lines[0]['matches']} rows); {lines} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    return lines
 
 
 def main():
@@ -703,6 +1184,13 @@ def main():
     phase("static-cache", "warm-up, main path and a second static scan "
           "with the same key: 0 nvcc runs after the build")
 
+    # --- the sharded scan: against the single launch and the plain
+    # version, timed; the mesh main paths; two processes on gloo ---------
+    sharded = sharded_phase(table, planted, key, spend, smi)
+    mesh_launches, exchange = mesh_main_paths(table, planted, key, spend,
+                                              smi)
+    multihost_phase()
+
     # --- the probe kernels: each case against its plain version, then
     # the probe tools' own run at the scan's launch width -----------------
     from cudasp_tpu_torch.tools import alu_probe, microbench, stage_profile
@@ -807,7 +1295,28 @@ def main():
                       for lad in LADDERS for hi in CUTS})
         return e
 
+    sharded_entry = {
+        "name": "scan_kernel_sharded", "route": "cuda",
+        "source": "cudasp_tpu_torch/csrc/scan.cu",
+        "wrapper": "cudasp_tpu_torch/ops/kernels.py:scan_flags_sharded",
+        "replaces": "cudasp_tpu/ops/kernels.py:832-893",
+        "mesh": "4 x cuda:0", "wire": "x",
+        "launches": mesh_launches["mesh4"],
+        "launches_by_path": mesh_launches,
+        "mismatches": sharded["mismatches"],
+        "max_abs_err": sharded["max_abs_err"],
+        "ms": sharded["ms"], "single_ms": sharded["single_ms"],
+        "runs_ms": sharded["runs_ms"], "plain_ms": sharded["plain_ms"],
+        "bound_ms": sharded["bound_ms"], "bound_by": sharded["bound_by"],
+        "products_per_row": sharded["products_per_row"],
+        "exchange_ms": exchange["mesh4"]["ms"],
+        "exchange_host_ms": exchange["mesh4"]["host_ms"],
+        "all_cards": sharded["all_cards"] and {
+            **sharded["all_cards"],
+            "exchange_ms": exchange["all-cards"]["ms"]},
+        "library_ms": None}
     print(json.dumps({"kernels": [entry(name) for name in MAIN_PATHS]
+                      + [sharded_entry]
                       + [probe_entry(name) for name in PROBE_ENTRIES]}),
           flush=True)
     print(smi, flush=True)
@@ -818,4 +1327,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(multihost_worker(*map(int, sys.argv[2:4]), sys.argv[4]))
     sys.exit(main())

@@ -7,7 +7,9 @@ out. Same wire formats and semantics as the JAX package.
 It runs on the GPU unless the caller passes device="cpu"; without a CUDA
 device it raises instead of falling back. On the GPU every batch goes
 through the hand-written scan kernel; on the CPU through its plain-torch
-version."""
+version. With ScanConfig(mesh=parallel.mesh.make_mesh()) each batch is
+split over the mesh's entries, one launch each (and, with rebalance=True,
+through the row exchange first)."""
 
 from __future__ import annotations
 
@@ -60,6 +62,14 @@ class ScanConfig:
     # in the process): for a long-lived key over many rows. The cached
     # library encodes the scan key. Overrides `ladder`.
     static_key: bool = False
+    # A parallel.mesh.Mesh (make_mesh()): each batch splits into the
+    # mesh's lane shards and each entry runs the scan kernel over its own,
+    # on its own streams. The mesh's devices decide where the scan runs.
+    mesh: object = None
+    # With a mesh: send every batch through the row exchange
+    # (parallel.exchange) so that skewed per-shard live rows even out
+    # before the kernel; it ships the "full" wire whatever `upload` says.
+    rebalance: bool = False
 
 
 @dataclass
@@ -164,7 +174,13 @@ def resolve_upload(cfg: ScanConfig) -> str:
     return upload
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, mesh=None) -> torch.device:
+    if mesh is not None:
+        kind = mesh.device_type
+        if device is not None and torch.device(device).type != kind:
+            raise BindError(f"device {device!r} disagrees with the mesh's "
+                            f"{kind} devices {mesh}")
+        device = mesh.devices[0]
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("cudasp_tpu_torch.scan runs on a CUDA device and "
@@ -189,7 +205,8 @@ def scan(table, scan_private_key: bytes, spend_public_key: bytes,
     scan_private_key: 32-byte LE scalar blob
     spend_public_key: 64-byte LE point blob
     label_keys: 64-byte LE point blobs
-    device: "cuda" (default) or "cpu"."""
+    device: "cuda" (default) or "cpu"; with config.mesh, the mesh's
+    devices decide, and a device of another type is a BindError."""
     return _scan_impl(table, scan_private_key, spend_public_key, label_keys,
                       batch_size=batch_size, config=config, device=device)
 
@@ -211,7 +228,7 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
             raise BindError(f"label_keys[{i}] must be exactly 64 bytes")
     upload = resolve_upload(cfg)
     ladder = resolve_ladder(cfg)
-    dev = _resolve_device(device)
+    dev = _resolve_device(device, cfg.mesh)
 
     metrics = (ScanMetrics(batch_size=cfg.batch_size)
                if cfg.collect_metrics else None)
@@ -277,7 +294,8 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
         metrics.rows_in = n
         metrics.batch_size = eff_batch
     executor = BatchExecutor(dev, block_rows=cfg.block_rows, upload=upload,
-                             ladder=ladder)
+                             ladder=ladder, mesh=cfg.mesh,
+                             rebalance=cfg.rebalance)
     results = executor.run(batches, sched, spend, labels, metrics=metrics)
 
     matched: List[np.ndarray] = []

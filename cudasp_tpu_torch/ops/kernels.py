@@ -722,3 +722,106 @@ def scan_flags(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
                        block_rows=block_rows, ladder=ladder,
                        static_sched=static_sched, hi_only=hi_only, nout=M)
     return pack_flag_words(flags) if pack_flags else flags
+
+
+# ---------------------------------------------------------------------------
+# The sharded scan: one launch per mesh entry
+# ---------------------------------------------------------------------------
+
+
+class ShardedLaunches:
+    """launches: the kernel launches that scan_flags_sharded made, one per
+    mesh entry of each call on CUDA tensors (each also counts in its
+    ladder's ScanKernel)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+SHARDED = ShardedLaunches()
+
+
+def scan_flags_sharded(mesh, tweak_words, outputs_hi, outputs_lo,
+                       outputs_mask, digits, spend, labels, comb,
+                       blockmask=None, *, block_rows=256, wire="x",
+                       pack_flags=False, ladder="fixed", static_sched=None,
+                       hi_only=None, nout=None, streams=None):
+    """scan_flags over a mesh (counterpart of scan_pallas_sharded,
+    cudasp_tpu/ops/kernels.py:866-893, whose shard_map body is the same
+    kernel): the batch's B lanes split into mesh.size contiguous shards,
+    and each entry runs the scan kernel over its own shard, on its own
+    device and stream (parallel.mesh.Fanout); CPU entries run the plain
+    version, except on a shard whose block mask is all 0, whose flags are
+    0. B must be a multiple of mesh.size x block_rows.
+
+    The lane operands (tweak_words, outputs_hi, outputs_lo, outputs_mask)
+    come whole, (K, B), and are split here, or as lists of per-entry
+    shards already on their devices. A cut's width-1 dummies are
+    replicated, not split: outputs_lo on every cut, outputs_mask on hi16 /
+    hi8. spend, labels and comb are replicated, one copy per distinct
+    device (or given as {device: tensor}). blockmask, (B // block_rows,),
+    splits in (entry, local block) order, or comes as per-entry lists.
+    pack_flags packs each shard's flags, so it needs (B / mesh.size) % 32
+    == 0.
+
+    Returns the flags in lane order: one tensor, (1, B) int8 or (1, B/32)
+    int32, on tweak_words' device when the lane operands came whole; the
+    per-entry flags when they came sharded."""
+    from ..parallel.mesh import BatchShardings, Fanout, is_sharded
+
+    ndev = mesh.size
+    sh = BatchShardings(mesh)
+    whole = not is_sharded(tweak_words)
+    B = (tweak_words.shape[1] if whole
+         else sum(t.shape[1] for t in tweak_words))
+    if B % (ndev * block_rows):
+        raise ValueError(f"batch width {B} not a multiple of {ndev} devices "
+                         f"x {block_rows} block rows")
+    L = B // ndev
+    if pack_flags and L % 32:
+        raise ValueError(f"packed flags need a shard width that is a "
+                         f"multiple of 32, got {L}")
+
+    def split(x, lanes):
+        if lanes or is_sharded(x):
+            parts = sh.lanes(x)
+        else:
+            reps = sh.replicated(x)
+            parts = [reps[d] for d in mesh.devices]
+        for p, d in zip(parts, mesh.devices):
+            if p.device != d:
+                raise ValueError(f"a shard on {p.device} for the mesh "
+                                 f"entry {d}")
+        return parts
+
+    tw = split(tweak_words, True)
+    if any(t.shape[1] != L for t in tw):
+        raise ValueError(f"shards of {[t.shape[1] for t in tw]} lanes; "
+                         f"each entry takes {L}")
+    oh = split(outputs_hi, True)
+    ol = split(outputs_lo, not hi_only)
+    ovm = split(outputs_mask, hi_only not in HI_UNITS)
+    bm = ([None] * ndev if blockmask is None else split(blockmask, True))
+    sp, lab, cb = (sh.replicated(x) for x in (spend, labels, comb))
+    fan = Fanout(mesh, streams)
+    flags = []
+    for k, dev in enumerate(mesh.devices):
+        if dev.type == "cpu" and bm[k] is not None and not bm[k].any():
+            # a shard of padding: the plain version is skipped (its flags
+            # are 0); on the card the kernel launches with its mask
+            flags.append(torch.zeros((1, L // 32), dtype=torch.int32)
+                         if pack_flags else
+                         torch.zeros((1, L), dtype=torch.int8))
+            continue
+        with fan.on(k):
+            flags.append(scan_flags(
+                tw[k], oh[k], ol[k], ovm[k], digits, sp[dev], lab[dev],
+                cb[dev], bm[k], block_rows=block_rows, wire=wire,
+                pack_flags=pack_flags, ladder=ladder,
+                static_sched=static_sched, hi_only=hi_only, nout=nout))
+        if dev.type == "cuda":
+            SHARDED.launches += 1
+    fan.join([[f] for f in flags])
+    if whole:
+        return torch.cat([f.to(tweak_words.device) for f in flags], dim=1)
+    return flags

@@ -1,5 +1,5 @@
 """Batch executor: packed batches through the scan kernel on one device
-(counterpart of cudasp_tpu/runtime/executor.py `_run_pallas`, single GPU).
+or a mesh (counterpart of cudasp_tpu/runtime/executor.py `_run_pallas`).
 
 Upload modes (per row at 3 outputs, plus the blockmask row): "full64"
 (the 64-byte point, 92 B: the kernel skips the square root), "full" (x
@@ -23,10 +23,22 @@ Python loop of streams and events: no background threads, so a failure
 cannot leave the caller waiting on a dead feeder. Any failure of batch i,
 or of the exact pass over its rows, raises ExecutionError(i).
 
+With a mesh (parallel.mesh; the counterpart of the reference's
+shard_map), each batch is split into the mesh's contiguous lane shards:
+every entry stages and uploads its shard on its own copy stream, one
+ops.kernels.scan_flags_sharded call launches the kernel once per entry on
+that entry's compute stream, and each entry's flags come back on it. The
+batch pads to block_rows x entries; flags pack per shard where the shard
+width allows. "auto" models from the slowest entry's kernel and the
+batch's bytes over the longest H2D. With rebalance=True, every batch goes
+through the row exchange (parallel.exchange) first, on the "full" wire,
+with its source rows as two more planes that come back with the flags.
+
 On the CPU the same loop calls the kernel's plain version."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from collections import OrderedDict, deque
@@ -36,7 +48,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..io.ingest import PackedBatch
+from ..io.ingest import PackedBatch, split_outputs_i64
 from ..ops import kernels as K
 from .errors import ExecutionError
 from .metrics import ScanMetrics
@@ -118,11 +130,14 @@ def _width(n: int, block_rows: int) -> int:
     return max(block_rows, -(-n // block_rows) * block_rows)
 
 
-def _planes(b: PackedBatch, block_rows: int, mode: str):
-    """PackedBatch -> (plane arrays as int32 views, blockmask or None)."""
+def _planes(b: PackedBatch, block_rows: int, mode: str,
+            pad_to: Optional[int] = None):
+    """PackedBatch -> (plane arrays as int32 views, blockmask or None), the
+    lanes padded to a multiple of pad_to (block_rows x mesh entries;
+    default block_rows)."""
     planes = K.pack_batch_arrays(
         b.tweak_blobs, b.row_valid, b.outputs_hi, b.outputs_lo,
-        b.outputs_valid, block_rows=block_rows,
+        b.outputs_valid, block_rows=pad_to or block_rows,
         wire="xy" if mode == "full64" else "x",
         hi_only=mode if mode in CUTS else None)
     width = planes[0].shape[1]
@@ -140,57 +155,65 @@ class _Auto:
     veto: bool = False
 
 
-class _Device:
-    """Where a batch's flags are computed. submit(planes, bmask, mode, M)
-    -> ticket (handle, staging seconds, bytes up); result(ticket, metrics)
-    -> (flags, H2D seconds, kernel seconds), the times None off the card.
-    timed: whether there are device times for "auto" to read."""
+def _src_planes(sources, width: int):
+    """A batch's source rows, padded to `width` with -1, as the (1, width)
+    int32 halves that travel with their rows through the exchange."""
+    s = np.full(width, -1, np.int64)
+    s[:len(sources)] = sources
+    return [h[None] for h in split_outputs_i64(s)]
+
+
+def _join_src(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    return (hi[0].astype(np.int64) << 32) | (lo[0].astype(np.int64)
+                                            & 0xFFFFFFFF)
+
+
+class _Cpu:
+    """One CPU entry: planes become tensors as they are; no device times,
+    so "auto" is "full" here."""
 
     timed = False
 
-    def __init__(self, ex, digits, static, sp, lab, comb):
-        self.ex, self.static = ex, static
-        self.args = (digits, sp, lab, comb)
+    def __init__(self, device):
+        self.device = device
+        self.compute_stream = None
 
-    def flags(self, ops, bmask, mode, M):
-        """One launch (or plain-version call) on one upload mode. Flags
-        come packed 32 a word where the lane width allows, else int8."""
-        width = ops[0].shape[1]
-        return K.scan_flags(
-            *ops, *self.args, bmask, block_rows=self.ex.block_rows,
-            wire="xy" if mode == "full64" else "x",
-            pack_flags=width % 32 == 0, ladder=self.ex.ladder,
-            static_sched=self.static, hi_only=mode if mode in CUTS else None,
-            nout=M)
+    def stage(self, wire, bmask):
+        """(numpy planes, blockmask) -> ticket (slot, device planes,
+        device blockmask, staging seconds, bytes up)."""
+        return (None, [torch.from_numpy(np.ascontiguousarray(p))
+                       for p in wire],
+                None if bmask is None else torch.from_numpy(bmask), 0.0, 0)
 
+    def dummy(self, shape):
+        return torch.zeros(shape, dtype=torch.int32)
 
-class _Cpu(_Device):
-    """The kernel's plain version, one batch at a time. It has no device
-    times, so "auto" is "full" here."""
+    def on(self):
+        return contextlib.nullcontext()
 
-    def submit(self, planes, bmask, mode, M):
-        flags = self.flags([torch.from_numpy(p) for p in planes],
-                           None if bmask is None else torch.from_numpy(bmask),
-                           mode, M)
-        # (ticket, staging seconds, bytes up): nothing crosses a wire here
-        return flags.numpy(), 0.0, 0
+    def mark(self, slot):
+        pass
 
-    def result(self, ticket, metrics):
-        """(flags, H2D seconds, kernel seconds): no device times here."""
-        return ticket[0], None, None
+    def collect(self, slot, outs):
+        return outs
+
+    def wait(self, slot, outs, metrics):
+        """(outputs as numpy, H2D seconds, kernel seconds): no device
+        times here."""
+        return [o.numpy() for o in outs], None, None
 
 
-class _Cuda(_Device):
-    """Staging, H2D, kernel and D2H of a batch on one card, two buffer
-    sets alternating (module docstring)."""
+class _Cuda:
+    """Staging, H2D, kernel and D2H on one card (or one mesh entry of it),
+    two buffer sets alternating (module docstring). Each entry has its own
+    copy and compute streams, pinned buffers and dummies."""
 
     timed = True
 
-    def __init__(self, ex, digits, static, sp, lab, comb):
-        super().__init__(ex, digits, static, sp, lab, comb)
-        dev = ex.device
-        self.copy_stream = torch.cuda.Stream(dev)
-        self.compute_stream = torch.cuda.Stream(dev)
+    def __init__(self, device):
+        self.device = device
+        self.copy_stream = torch.cuda.Stream(device)
+        self.compute_stream = torch.cuda.Stream(device)
         self.slots = [None, None]
         self.n = 0
         self.dummies = {}
@@ -204,27 +227,25 @@ class _Cuda(_Device):
                 "host": torch.empty(words, dtype=torch.int32,
                                     pin_memory=True),
                 "dev": torch.empty(words, dtype=torch.int32,
-                                   device=self.ex.device),
-                "flags": None,
-                "h2d0": torch.cuda.Event(**timed),
-                "h2d": torch.cuda.Event(**timed),
-                "k0": torch.cuda.Event(**timed),
-                "k1": torch.cuda.Event(**timed),
-                "done": torch.cuda.Event(**timed),
+                                   device=self.device),
+                "out": [],
+                **{ev: torch.cuda.Event(**timed)
+                   for ev in ("h2d0", "h2d", "k0", "x1", "k1", "done")},
             }
         return slot
 
-    def _dummy(self, shape):
+    def dummy(self, shape):
         """A cut's dummy plane, made on the card (never uploaded)."""
         if shape not in self.dummies:
             self.dummies[shape] = torch.zeros(shape, dtype=torch.int32,
-                                              device=self.ex.device)
+                                              device=self.device)
         return self.dummies[shape]
 
-    def submit(self, planes, bmask, mode, M):
-        hi = mode if mode in CUTS else None
-        wire = wire_planes(planes, mode)
-        width = planes[0].shape[1]
+    def on(self):
+        return torch.cuda.stream(self.compute_stream)
+
+    def stage(self, wire, bmask):
+        width = wire[0].shape[1]
         nrow = sum(p.shape[0] for p in wire) + 1        # + blockmask
         slot = self._slot(self.n % 2, nrow * width)
         self.n += 1
@@ -247,48 +268,189 @@ class _Cuda(_Device):
             slot["h2d0"].record(self.copy_stream)
             dv.copy_(host, non_blocking=True)
             slot["h2d"].record(self.copy_stream)
-        with torch.cuda.stream(self.compute_stream):
-            self.compute_stream.wait_event(slot["h2d"])
-            ops = [dv[a:z] for a, z in views]
-            if hi is not None:
-                ops.insert(2, self._dummy(planes[2].shape))
-            if hi in K.HI_UNITS:
-                ops.append(self._dummy(planes[3].shape))
-            slot["k0"].record(self.compute_stream)
-            flags = self.flags(
-                ops, None if bmask is None else dv[at, :len(bmask)], mode, M)
-            slot["k1"].record(self.compute_stream)
-            if slot["flags"] is None or slot["flags"].shape != flags.shape \
-                    or slot["flags"].dtype != flags.dtype:
-                slot["flags"] = torch.empty(flags.shape, dtype=flags.dtype,
-                                            pin_memory=True)
-            slot["flags"].copy_(flags, non_blocking=True)
-            slot["done"].record(self.compute_stream)
-        return slot, staged, 4 * nrow * width
+        self.compute_stream.wait_event(slot["h2d"])
+        slot["k0"].record(self.compute_stream)
+        slot["exchanged"] = False
+        return (slot, [dv[a:z] for a, z in views],
+                None if bmask is None else dv[at, :len(bmask)], staged,
+                4 * nrow * width)
 
-    def result(self, ticket, metrics):
-        slot = ticket[0]
+    def mark(self, slot):
+        """The exchange ends here; the kernel starts."""
+        slot["x1"].record(self.compute_stream)
+        slot["exchanged"] = True
+
+    def collect(self, slot, outs):
+        """The batch's outputs come back D2H on the compute stream into
+        pinned buffers of the slot."""
+        with torch.cuda.stream(self.compute_stream):
+            slot["k1"].record(self.compute_stream)
+            if [(o.shape, o.dtype) for o in slot["out"]] != [
+                    (o.shape, o.dtype) for o in outs]:
+                slot["out"] = [torch.empty(o.shape, dtype=o.dtype,
+                                           pin_memory=True) for o in outs]
+            for h, o in zip(slot["out"], outs):
+                h.copy_(o, non_blocking=True)
+            slot["done"].record(self.compute_stream)
+        return slot["out"]
+
+    def wait(self, slot, outs, metrics):
         t0 = time.perf_counter()
         slot["done"].synchronize()
         if metrics is not None:
             metrics.device_wait_seconds += time.perf_counter() - t0
-        return (slot["flags"].numpy().copy(),
+        k0 = slot["x1"] if slot["exchanged"] else slot["k0"]
+        return ([o.numpy().copy() for o in outs],
                 slot["h2d0"].elapsed_time(slot["h2d"]) / 1e3,
-                slot["k0"].elapsed_time(slot["k1"]) / 1e3)
+                k0.elapsed_time(slot["k1"]) / 1e3)
+
+
+def _exchange_span(slots) -> float:
+    """Seconds of a batch's exchange, by CUDA events: on each device, from
+    the last of its entries' inputs being ready (k0) to the last of them
+    exchanged (x1); the longest over the devices. Events of one device
+    compare across its streams, not across devices."""
+    span = 0.0
+    for dev in dict.fromkeys(d for d, _ in slots):
+        evs = [slot for d, slot in slots if d == dev]
+        ref = evs[0]["k0"]
+
+        def last(name):
+            return max((s[name] for s in evs),
+                       key=lambda e: ref.elapsed_time(e))
+        span = max(span, last("k0").elapsed_time(last("x1")) / 1e3)
+    return span
+
+
+def _with_dummies(entry, ops, planes, mode):
+    """A cut's wire planes plus its dummies, made on the entry's device,
+    in the kernel's operand order."""
+    if mode in CUTS:
+        ops.insert(2, entry.dummy(planes[2].shape))
+    if mode in K.HI_UNITS:
+        ops.append(entry.dummy(planes[3].shape))
+    return ops
+
+
+class _Run:
+    """Where a scan's batches run: one device, or each mesh entry over its
+    lane shard. submit(planes, bmask, mode, M, sources) -> ticket (handle,
+    staging seconds, bytes up); result(ticket, metrics) -> (flags, source
+    rows or None for the batch's own, H2D seconds, kernel seconds), the
+    times None off the card; on a mesh the slowest entry's."""
+
+    def __init__(self, ex, entries, digits, static, query):
+        self.ex, self.entries, self.static = ex, entries, static
+        self.digits, self.query = digits, query
+        self.timed = entries[0].timed
+
+    def _kw(self, mode, M, pack):
+        return dict(block_rows=self.ex.block_rows,
+                    wire="xy" if mode == "full64" else "x",
+                    pack_flags=pack, ladder=self.ex.ladder,
+                    static_sched=self.static,
+                    hi_only=mode if mode in CUTS else None, nout=M)
+
+    def submit(self, planes, bmask, mode, M, sources=None):
+        """One launch (or plain-version call) on one upload mode. Flags
+        come packed 32 a word where the lane width allows, else int8."""
+        e = self.entries[0]
+        slot, ops, bm, staged, nbytes = e.stage(wire_planes(planes, mode),
+                                                bmask)
+        ops = _with_dummies(e, ops, planes, mode)
+        sp, lab, comb = self.query[e.device]
+        with e.on():
+            flags = K.scan_flags(*ops, self.digits, sp, lab, comb, bm,
+                                 **self._kw(mode, M,
+                                            planes[0].shape[1] % 32 == 0))
+        return [(e, slot, e.collect(slot, [flags]))], staged, nbytes
+
+    def result(self, ticket, metrics):
+        res = [e.wait(slot, outs, metrics) for e, slot, outs in ticket[0]]
+        outs = [np.concatenate(parts, axis=1)
+                for parts in zip(*(r[0] for r in res))]
+        sources = _join_src(outs[1], outs[2]) if len(outs) == 3 else None
+        if not self.timed:
+            return outs[0], sources, None, None
+        if sources is not None and metrics is not None:
+            metrics.exchange_seconds += _exchange_span(
+                [(e.device, slot) for e, slot, _ in ticket[0]])
+        return (outs[0], sources, max(r[1] for r in res),
+                max(r[2] for r in res))
+
+
+class _MeshRun(_Run):
+    """Each batch split into the mesh's lane shards: every entry stages
+    and uploads its own shard on its own streams, one scan_flags_sharded
+    call launches the kernel on each, and the flags come back per entry.
+    With rebalance, the exchange (parallel.exchange) first evens out the
+    live rows, and the source rows travel with them."""
+
+    def submit(self, planes, bmask, mode, M, sources=None):
+        from ..parallel import exchange as X
+        from ..parallel.mesh import lane_ranges
+
+        mesh = self.ex.mesh
+        n = mesh.size
+        B = planes[0].shape[1]
+        nbl = B // self.ex.block_rows // n
+        wire = wire_planes(planes, mode)
+        if sources is not None:
+            # the exchange makes its own block masks on the device
+            wire += _src_planes(sources, B)
+            bmask = None
+        ticket, staged, nbytes, ops, bms = [], 0.0, 0, [], []
+        for k, (e, (a, z)) in enumerate(zip(
+                self.entries, lane_ranges(n, B))):
+            slot, o, bm, s, b = e.stage(
+                [p[:, a:z] for p in wire],
+                None if bmask is None else bmask[k * nbl:(k + 1) * nbl])
+            ticket.append((e, slot))
+            staged, nbytes = staged + s, nbytes + b
+            ops.append(_with_dummies(e, o, planes, mode))
+            bms.append(bm)
+        lanes = [list(x) for x in zip(*ops)]
+        streams = [e.compute_stream for e in self.entries]
+        sp, lab, comb = ({d: q[j] for d, q in self.query.items()}
+                         for j in range(3))
+        if sources is not None:
+            tw, oh, ol, ovm, shi, slo = lanes
+            (tw, oh, ol, shi, slo, ovm), _, bms = X.rebalance(
+                mesh, tw, oh, ol, shi, slo, ovm,
+                block_rows=self.ex.block_rows, streams=streams)
+            for e, slot in ticket:
+                e.mark(slot)
+            lanes, extra = [tw, oh, ol, ovm], [shi, slo]
+            pack = False
+        else:
+            extra, pack = [], (B // n) % 32 == 0
+        flags = K.scan_flags_sharded(
+            mesh, *lanes, self.digits, sp, lab, comb,
+            None if bms[0] is None else bms, streams=streams,
+            **self._kw(mode, M, pack))
+        ticket = [(e, slot, e.collect(slot, [f] + [x[k] for x in extra]))
+                  for k, ((e, slot), f) in enumerate(zip(ticket, flags))]
+        return ticket, staged, nbytes
 
 
 class BatchExecutor:
-    """Runs packed batches on one device ("cuda", "cuda:N" or "cpu")
-    through one ladder of the scan kernel ("fixed", "wnaf" or "static"),
-    on one upload mode of UPLOADS."""
+    """Runs packed batches on one device ("cuda", "cuda:N" or "cpu"), or on
+    a mesh (parallel.mesh.Mesh: each entry over its lane shard), through
+    one ladder of the scan kernel ("fixed", "wnaf" or "static"), on one
+    upload mode of UPLOADS. rebalance (mesh only) sends every batch
+    through the row exchange first, on the "full" wire, as the reference
+    does."""
 
-    # process-wide: (ladder, width, M) -> (kernel0 seconds, decision) of
-    # "auto", so a later scan of the same shape starts from them
+    # process-wide: (ladder, width, M[, mesh]) -> (kernel0 seconds,
+    # decision) of "auto", so a later scan of the same shape starts from
+    # them
     _auto_memo: "OrderedDict" = OrderedDict()
 
     def __init__(self, device, block_rows: int = 256, upload: str = "full",
-                 ladder: str = "fixed"):
-        self.device = torch.device(device)
+                 ladder: str = "fixed", mesh=None, rebalance: bool = False):
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None
+                                   else mesh.devices[0])
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available")
         if ladder not in K.LADDERS:
@@ -300,12 +462,28 @@ class BatchExecutor:
         self.block_rows = block_rows
         self.upload = upload
         self.ladder = ladder
+        self.rebalance = bool(rebalance and mesh is not None)
+        # sharded batches split their lanes evenly
+        self.pad_to = block_rows * (1 if mesh is None else mesh.size)
 
     def _query(self, spend, labels):
-        def t(a):
+        """{device: (spend, labels, comb)} for each device the scan uses."""
+        devs = (self.mesh.distinct if self.mesh is not None
+                else (self.device,))
+
+        def t(a, d):
             return torch.from_numpy(
-                np.ascontiguousarray(a).view(np.int32)).to(self.device)
-        return t(spend), t(labels), K.comb_table(self.device)
+                np.ascontiguousarray(a).view(np.int32)).to(d)
+        return {d: (t(spend, d), t(labels, d), K.comb_table(d))
+                for d in devs}
+
+    def _run_on(self, digits, static, spend, labels):
+        devs = (self.mesh.devices if self.mesh is not None
+                else (self.device,))
+        entry = _Cuda if self.device.type == "cuda" else _Cpu
+        return (_Run if self.mesh is None else _MeshRun)(
+            self, [entry(d) for d in devs], digits, static,
+            self._query(spend, labels))
 
     def run(self, batches, sched, spend, labels,
             metrics: Optional[ScanMetrics] = None) -> List[tuple]:
@@ -321,9 +499,9 @@ class BatchExecutor:
             # "static") before the first batch is packed: a failed build
             # raises here, and nothing falls back to another ladder
             K.KERNELS[self.ladder].library(static)
-        dev = (_Cuda if cuda else _Cpu)(self, digits, static,
-                                        *self._query(spend, labels))
-        auto = _Auto() if self.upload == "auto" and dev.timed else None
+        dev = self._run_on(digits, static, spend, labels)
+        auto = (_Auto() if self.upload == "auto" and dev.timed
+                and not self.rebalance else None)
         memo_key = None
         tags = {}
         results = []          # [flags bool (n,), source rows]
@@ -333,6 +511,8 @@ class BatchExecutor:
         density = [0, 0]      # rows on a cut wire, of which flagged
 
         def mode_for(M):
+            if self.rebalance:
+                return "full"       # the exchange's wire, as the reference
             if auto is not None:
                 want = auto.want
             else:
@@ -345,8 +525,10 @@ class BatchExecutor:
 
         def finish(entry):
             ticket, i, b, mode = entry
-            flags, h2d_s, kern_s = dev.result(ticket, metrics)
-            fl = K.flags_to_bool(flags, len(b.source_rows))
+            flags, sources, h2d_s, kern_s = dev.result(ticket, metrics)
+            if sources is None:
+                sources = b.source_rows
+            fl = K.flags_to_bool(flags, len(sources))
             if mode in CUTS:
                 flagged = np.flatnonzero(fl)
                 if len(flagged):
@@ -358,7 +540,7 @@ class BatchExecutor:
                 fl = np.zeros_like(fl)          # the exact pass fills in
                 density[0] += len(fl)
                 density[1] += len(flagged)
-            results.append([fl, b.source_rows])
+            results.append([fl, sources])
             if metrics is not None and h2d_s is not None:
                 metrics.h2d_seconds += h2d_s
             if auto is None:
@@ -376,7 +558,7 @@ class BatchExecutor:
             M = b.outputs_hi.shape[1]
             rate = max(sent / max(dt, 1e-9)
                        for dt, sent in auto.uploads[-4:])
-            width = _width(len(b.source_rows), self.block_rows)
+            width = _width(len(b.source_rows), self.pad_to)
             auto.want = auto_decide(
                 auto.kernel0, rate, width, M, cut_tag_for(M, warn=False),
                 auto.want, auto.veto, XY_KERNEL_SHARE[self.ladder])
@@ -396,10 +578,11 @@ class BatchExecutor:
         for i, b in enumerate(batches):
             try:
                 M = b.outputs_hi.shape[1]
-                width = _width(len(b.source_rows), self.block_rows)
+                width = _width(len(b.source_rows), self.pad_to)
                 scan_width = max(scan_width, width)
                 if auto is not None and i == 0:
-                    memo_key = (self.ladder, width, M)
+                    memo_key = (self.ladder, width, M) + (
+                        () if self.mesh is None else (self.mesh,))
                     memo = BatchExecutor._auto_memo.get(memo_key)
                     if memo is not None:
                         auto.kernel0, auto.want = memo
@@ -407,14 +590,20 @@ class BatchExecutor:
                 if mode != "full":
                     used[0] = mode
                 t0 = time.perf_counter()
-                planes, bmask = _planes(b, self.block_rows, mode)
+                planes, bmask = _planes(b, self.block_rows, mode,
+                                        self.pad_to)
                 if metrics is not None:
                     metrics.pack_seconds += time.perf_counter() - t0
-                ticket = dev.submit(planes, bmask, mode, M)
+                ticket = dev.submit(planes, bmask, mode, M,
+                                    b.source_rows if self.rebalance
+                                    else None)
                 if metrics is not None:
                     metrics.upload_seconds += ticket[1]
                     metrics.upload_bytes += ticket[2]
                     metrics.batches += 1
+                    if self.rebalance:
+                        metrics.exchange_bytes += 4 * width * (
+                            sum(p.shape[0] for p in planes) + 2)
                 inflight.append((ticket, i, b, mode))
             except Exception as e:
                 raise ExecutionError(i, e) from e
@@ -432,17 +621,19 @@ class BatchExecutor:
             metrics.device_seconds += time.perf_counter() - t_run
             metrics.upload_mode = used[0]
             metrics.ladder = self.ladder
+            metrics.n_devices = 1 if self.mesh is None else self.mesh.size
         return [tuple(r) for r in results]
 
     def _reverify(self, dev, queued, results, width, metrics):
         """The exact pass over the rows a cut flagged: repacked on the
-        "full" wire, through the same ladder's kernel, at most `width`
-        rows a launch (a block_rows multiple), and their exact flags
-        written back into their batches' results. The reference runs the
-        pass through the scan's compiled width and ships a cut's tail
-        batch full until its program is warm; the port compiles nothing
-        in a scan, so every batch ships the wire it asked for and the pass
-        takes its own width: a difference in mechanism, not in result."""
+        "full" wire, through the same ladder's kernel (on a mesh, the
+        sharded kernel), at most `width` rows a launch (a multiple of
+        block_rows x mesh entries), and their exact flags written back
+        into their batches' results. The reference runs the pass through
+        the scan's compiled width and ships a cut's tail batch full until
+        its program is warm; the port compiles nothing in a scan, so every
+        batch ships the wire it asked for and the pass takes its own
+        width: a difference in mechanism, not in result."""
         blobs, oh, ol, ov = (np.concatenate([q[k] for q in queued])
                              for k in range(3, 7))
         origin = np.concatenate([np.full(len(q[2]), q[1]) for q in queued])
@@ -456,7 +647,8 @@ class BatchExecutor:
                 b = PackedBatch(blobs[a:z], np.ones(z - a, bool), oh[a:z],
                                 ol[a:z], ov[a:z],
                                 np.arange(a, z, dtype=np.int64))
-                planes, bmask = _planes(b, self.block_rows, "full")
+                planes, bmask = _planes(b, self.block_rows, "full",
+                                        self.pad_to)
                 ticket = dev.submit(planes, bmask, "full", oh.shape[1])
                 if metrics is not None:
                     metrics.upload_seconds += ticket[1]

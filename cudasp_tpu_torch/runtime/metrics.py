@@ -29,6 +29,11 @@ class ScanMetrics:
     h2d_seconds: float = 0.0           # the H2D copies, by CUDA events
     device_wait_seconds: float = 0.0   # host blocked on batch results
     device_seconds: float = 0.0        # the executor's whole run
+    # ScanConfig(rebalance=True): the row exchange, by CUDA events (on
+    # each card, from the last entry's planes ready to the last entry
+    # exchanged), and the plane bytes it moved
+    exchange_seconds: float = 0.0
+    exchange_bytes: int = 0
     total_seconds: float = 0.0
     # upload="auto" on a card: the batch-0 kernel seconds (CUDA events, or
     # the process's memo of that shape) and the best H2D rate of the last

@@ -326,13 +326,13 @@ class _TimedCpu(TX._Cpu):
 
     timed = True
 
-    def submit(self, planes, bmask, mode, M):
-        flags = super().submit(planes, bmask, mode, M)[0]
-        return flags, 0.0, sum(p.nbytes for p in TX.wire_planes(planes,
-                                                                 mode))
+    def stage(self, wire, bmask):
+        _, ops, bm, staged, _ = super().stage(wire, bmask)
+        sent = sum(p.nbytes for p in wire)
+        return {"sent": sent}, ops, bm, staged, sent
 
-    def result(self, ticket, metrics):
-        return ticket[0], ticket[2] / 50e6, 1e-6
+    def wait(self, slot, outs, metrics):
+        return [o.numpy() for o in outs], slot["sent"] / 50e6, 1e-6
 
 
 def test_auto_loop_cuts_on_a_slow_link_memoizes_and_vetoes(monkeypatch):
