@@ -16,11 +16,17 @@
 # ScanConfig(static_key=True, upload="full64") and ScanConfig(upload="hi8")
 # (the cut, then the exact pass over the rows it flags), each checked
 # exactly and shown to launch its own kernels; then a second static scan
-# with the same key, which must run no nvcc. It then holds the three
-# probe kernels (csrc/probe.cu: alu_kernel, bench_kernel, stage_kernel)
-# against their plain versions on the card, and drives the probe tools
-# (cudasp_tpu_torch.tools.alu_probe, microbench, stage_profile) at the
-# scan's launch width: the measured int32 multiply-add and field-product
+# with the same key, which must run no nvcc. After the builds it prints
+# ptxas's registers, stack frame and spill bytes and cuobjdump's SASS
+# counts (IMAD-family, IADD3, local loads and stores, calls) of every
+# scan-kernel instantiation and of bench_kernel's field cases, and runs
+# field-edges: fe_mul, fe_sqr, fe_add and fe_sub on the card over the
+# crafted edge pairs and 2^20 random edge-biased pairs, each output's
+# words held to the carry chains' algorithm on Python integers. It then
+# holds the three probe kernels (csrc/probe.cu: alu_kernel, bench_kernel,
+# stage_kernel) against their plain versions on the card, and drives the
+# probe tools (cudasp_tpu_torch.tools.alu_probe, microbench,
+# stage_profile) at the scan's launch width: the measured int32 multiply-add and field-product
 # rates, and the scan kernel's per-stage budget. The sharded scan
 # (ops.kernels.scan_flags_sharded: one launch of the same kernel per mesh
 # entry) is held bit for bit against the single launch on every ladder
@@ -66,8 +72,12 @@ BLOCK_ROWS = 256
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 33.5e12 / 2
 # a 256-bit field product on the card: 64 32x32->64-bit multiply-adds for
-# the schoolbook, 8 more for the fold by 977
+# the schoolbook, 8 more for the fold by 977; a square: its 28 cross
+# products once and its 8 squares (36), and the same fold (44). Until
+# squares were counted apart, every square was priced as a product: the
+# "bound_ms_products_only" numbers keep that bound beside the new one.
 IMAD_PER_PRODUCT = 72
+IMAD_PER_SQUARE = 44
 LADDERS = ("fixed", "wnaf", "static")
 # the probe kernels: the case each one's JSON entry times at the scan's
 # launch width, and its repeat count there (the plain version runs the
@@ -101,6 +111,26 @@ REPLACES = {"fixed": "cudasp_tpu/ops/kernels.py:737",
             "wnaf": "cudasp_tpu/ops/kernels.py:514",
             "static": "cudasp_tpu/ops/kernels.py:543",
             "hi": "cudasp_tpu/ops/kernels.py:428"}
+
+
+def reset_field_counts():
+    from cudasp_tpu_torch.ops import field as F
+
+    F.PRODUCTS[0] = F.SQUARES[0] = 0
+
+
+def field_counts():
+    """(products, squares) the plain version made since
+    reset_field_counts()."""
+    from cudasp_tpu_torch.ops import field as F
+
+    return F.PRODUCTS[0], F.SQUARES[0]
+
+
+def imad_bounds(products, squares):
+    """(multiply-adds of the work, the same priced at a product each)."""
+    return (products * IMAD_PER_PRODUCT + squares * IMAD_PER_SQUARE,
+            (products + squares) * IMAD_PER_PRODUCT)
 
 
 def phase(name, result):
@@ -170,22 +200,111 @@ def make_dataset(n_rows, seed):
             planted)
 
 
-def ptxas_summary(log):
-    """Registers and stack of each scan_kernel instantiation in a ptxas -v
-    log, by ladder functor name."""
-    out, cur = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"entry function '(\S*scan_kernel\S*)'", ln)
-        if m:
-            cur = re.search(r"(Fixed|Wnaf|Key)Ladder", m.group(1)).group(0)
-            continue
-        if cur and "stack frame" in ln:
-            out[cur] = ln.split(",")[0].strip()
-        elif cur and "Used" in ln and "registers" in ln:
-            regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out[cur] = f"{regs} registers, {out.get(cur, '')}"
-            cur = None
-    return out
+def ptxas_text(info):
+    """ptxas -v's registers, stack frame and spill bytes of each scan
+    kernel instantiation and device function (kernels.ptxas_info)."""
+    return " | ".join(
+        f"{n}: " + (f"{v['registers']} registers, " if "registers" in v
+                    else "")
+        + f"{v.get('stack')} B stack frame, {v.get('spill_stores')} / "
+        f"{v.get('spill_loads')} B spill stores / loads"
+        for n, v in info.items())
+
+
+def sass_text(counts):
+    return " | ".join(
+        f"{n}: IMAD {c['IMAD']} (WIDE {c['IMAD.WIDE']}, HI {c['IMAD.HI']}, "
+        f"X {c['IMAD.X']}, MOV {c['IMAD.MOV']}), IADD3 {c['IADD3']}, LDL "
+        f"{c['LDL']}, STL {c['STL']}, CALL {c['CALL']}, {c['all']} "
+        f"instructions" for n, c in counts.items())
+
+
+# field-edges: crafted values (the edges of p and 2^256, all-ones and
+# all-zero halves, multiples of 2^32 + 977, values in [p, 2^256)) and the
+# words random edge-biased values are drawn from
+P_INT = 2**256 - 2**32 - 977
+FOLD = 2**32 + 977
+W256 = 2**256
+CRAFTED = [0, 1, 2, 3, 977, FOLD, P_INT - 1, P_INT, P_INT + 1, P_INT + 2,
+           P_INT + 976, W256 - 1, W256 - 2, W256 - 2**32, P_INT + 0x12345,
+           2**255, 2**255 - 1, 2**128 - 1, W256 - 2**128, 2**128,
+           (2**128 - 1) << 64, 2**224 - 1, 0xFFFFFFFF << 224, FOLD * 7,
+           FOLD * (2**200 + 12345), FOLD * ((W256 - 1) // FOLD),
+           (P_INT + W256) // 2,
+           0x5555555555555555 * (2**192 + 2**128 + 2**64 + 1),
+           0xAAAAAAAAAAAAAAAA * (2**192 + 2**128 + 2**64 + 1),
+           int("7" * 64, 16)]
+WORD_PICKS = (0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF)
+FIELD_EDGE_PAIRS = 1 << 20
+
+
+def field_model(op, a, b):
+    """The words the card's fe_mul / fe_sqr / fe_add / fe_sub leave, on
+    Python integers: the carry chains' algorithm (a product or sum folded
+    by 2^256 == 2^32 + 977 until it is below 2^256; a difference's borrow
+    taken back out as 2^256 - 2^32 - 977, twice at most)."""
+    if op == "sub":
+        r = a - b
+        for _ in range(2):
+            if r < 0:
+                r += W256 - FOLD
+        return r
+    r = {"mul": a * b, "sqr": a * a, "add": a + b}[op]
+    for _ in range(3):
+        r = r % W256 + (r >> 256) * FOLD
+    return r
+
+
+def field_edges(device):
+    """fe_mul, fe_sqr, fe_add and fe_sub on the card (probe.cu's
+    field_kernel, one op a lane): every pair of the 30 crafted values and
+    FIELD_EDGE_PAIRS random pairs whose words are WORD_PICKS or uniform;
+    each output's words must equal field_model's, whose value is checked
+    against the op mod p. Returns (pairs, mismatches); raises on one."""
+    import numpy as np
+    import torch
+
+    from cudasp_tpu_torch.ops import probes as P
+
+    def words(vals):
+        return np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+                         for v in vals], np.uint32)
+
+    rng = np.random.default_rng(SEED + 2)
+    n = len(CRAFTED)
+    a = [words(CRAFTED).repeat(n, axis=0)]
+    b = [np.tile(words(CRAFTED), (n, 1))]
+    for dst in (a, b):
+        pick = rng.integers(0, len(WORD_PICKS) + 1, size=(FIELD_EDGE_PAIRS,
+                                                          8))
+        uni = rng.integers(0, 2**32, size=pick.shape, dtype=np.uint64)
+        dst.append(np.where(pick < len(WORD_PICKS), np.asarray(
+            WORD_PICKS + (0,), np.uint64)[pick], uni).astype(np.uint32))
+    a, b = np.concatenate(a), np.concatenate(b)
+
+    def ints(w):
+        return [int.from_bytes(row.tobytes(), "little") for row in w]
+
+    ia, ib = ints(a), ints(b)
+    xa, xb = (torch.from_numpy(np.ascontiguousarray(w.T).view(np.int32))
+              .to(device) for w in (a, b))
+    bad = 0
+    for k, op in enumerate(P.FIELD_OPS):
+        out = P.field_op(xa, xb, k)
+        got = ints(np.ascontiguousarray(out.cpu().numpy().view(np.uint32).T))
+        for g, u, v in zip(got, ia, ib):
+            if g != field_model(op, u, v):
+                bad += 1
+        # the model itself: the op's value mod p, below 2^256
+        for u, v in zip(ia[:n * n], ib[:n * n]):
+            r = field_model(op, u, v)
+            want = {"mul": u * v, "sqr": u * u, "add": u + v,
+                    "sub": u - v}[op]
+            assert 0 <= r < W256 and r % P_INT == want % P_INT, (op, u, v)
+    if bad:
+        raise AssertionError(f"field-edges: {bad} outputs differ from the "
+                             f"carry chains' algorithm on Python integers")
+    return len(ia), bad
 
 
 def probe_ptxas(log):
@@ -404,7 +523,6 @@ def probe_entries(device, comb):
     import torch
 
     import cudasp_tpu_torch as ct
-    from cudasp_tpu_torch.ops import field as F
     from cudasp_tpu_torch.ops import probes as P
 
     counts = dict(P.PROBES.launches)
@@ -428,7 +546,7 @@ def probe_entries(device, comb):
             args = (*fld, P.STAGES.index(case), iters, comb)
         ms = P.best_ms(lambda: kern(*args), device, 5)
         kout = kern(*args)
-        F.PRODUCTS[0] = 0
+        reset_field_counts()
         ev[0].record()
         pout = plain(*args)
         ev[1].record()
@@ -439,16 +557,20 @@ def probe_entries(device, comb):
             raise AssertionError(f"{kernel}/{case} at {width} lanes: "
                                  f"{int((d != 0).sum())} mismatches")
         # the ALU probe's bound is the multiply-add peak itself
-        ops = (P.NSTREAMS * x_alu.numel() * iters if kind == "alu"
-               else F.PRODUCTS[0] * IMAD_PER_PRODUCT)
+        products, squares = field_counts()
+        ops, ops_old = ((P.NSTREAMS * x_alu.numel() * iters,) * 2
+                        if kind == "alu" else imad_bounds(products, squares))
         by_ops = ops / IMAD_PER_S > nbytes / HBM_BYTES_PER_S
         out[kernel] = {
             "case": case, "lanes": width, "iters": iters, "ms": ms,
             "plain_ms": plain_ms, "max_abs_err": int(d.max()),
             "bound_ms": max(ops / IMAD_PER_S,
                             nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_ms_products_only": max(ops_old / IMAD_PER_S,
+                                          nbytes / HBM_BYTES_PER_S) * 1e3,
             "bound_by": "operations" if by_ops else "bytes",
-            "products": None if kind == "alu" else F.PRODUCTS[0]}
+            "products": None if kind == "alu" else products,
+            "squares": None if kind == "alu" else squares}
         del kout, pout, d
     P.PROBES.launches.update(counts)
     return out
@@ -559,7 +681,6 @@ def sharded_phase(table, planted, key, spend, smi):
     import torch
 
     import cudasp_tpu_torch as ct
-    from cudasp_tpu_torch.ops import field as F
     from cudasp_tpu_torch.ops import kernels as K
     from cudasp_tpu_torch.oracle import vectors as V
     from cudasp_tpu_torch.parallel.mesh import BatchShardings, make_mesh
@@ -698,26 +819,29 @@ def sharded_phase(table, planted, key, spend, smi):
     kf = sharded()
     torch.cuda.synchronize()
     kern.launches, kern.hi_launches, K.SHARDED.launches = counts
-    F.PRODUCTS[0] = 0
+    reset_field_counts()
     ev[0].record()
     pf = sharded_plain(mesh4, planes, None, q, "fixed", "x")
     ev[1].record()
     torch.cuda.synchronize()
     plain_ms = ev[0].elapsed_time(ev[1])
-    products = F.PRODUCTS[0]
+    products, squares = field_counts()
     r = check("sharded-main-batch/fixed/x", kf, K.pack_flag_words(pf), width,
               exp_w)
     mism, err = mism + r[0], max(err, r[1])
     del pf
     nbytes = (sum(p.numel() * 4 for p in planes) + width // 8
               + mesh4.size * (comb.numel() * 4 + sp.numel() * 4))
-    ops = products * IMAD_PER_PRODUCT
+    ops, ops_old = imad_bounds(products, squares)
     by_ops = ops / IMAD_PER_S > nbytes / HBM_BYTES_PER_S
     out = {"ms": float(np.mean(runs["sharded"])),
            "single_ms": float(np.mean(runs["single"])),
            "runs_ms": runs, "plain_ms": plain_ms,
            "products_per_row": products / width,
+           "squares_per_row": squares / width,
            "bound_ms": max(ops / IMAD_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+           "bound_ms_products_only": max(ops_old / IMAD_PER_S,
+                                         nbytes / HBM_BYTES_PER_S) * 1e3,
            "bound_by": "operations" if by_ops else "bytes",
            "mismatches": mism, "max_abs_err": err, "checks": checks,
            "all_cards": all_cards}
@@ -726,7 +850,9 @@ def sharded_phase(table, planted, key, spend, smi):
           f"launch {out['single_ms']:.3f} ms ({runs['single']}), ratio "
           f"{out['ms'] / out['single_ms']:.4f}; plain fan-out "
           f"{plain_ms:.1f} ms, {out['products_per_row']:.0f} field products "
-          f"a row, bound {out['bound_ms']:.3f} ms by {out['bound_by']} | "
+          f"and {out['squares_per_row']:.0f} squares a row, bound "
+          f"{out['bound_ms']:.3f} ms by {out['bound_by']} (products only: "
+          f"{out['bound_ms_products_only']:.3f}) | "
           f"{smi} [{time.perf_counter() - t0:.1f} s]")
     return out
 
@@ -937,7 +1063,6 @@ def main():
     import numpy as np
 
     import cudasp_tpu_torch as ct
-    from cudasp_tpu_torch.ops import field as F
     from cudasp_tpu_torch.ops import kernels as K
     from cudasp_tpu_torch.oracle import vectors as V
 
@@ -956,17 +1081,17 @@ def main():
     static_secs = build_all(static_keys)
     fx = K.KERNELS["fixed"]
     bs = fx.build_seconds
+    ptxas = K.ptxas_info(fx.build_log)
     phase("build", "csrc/scan.cu (fixed + wnaf): "
           + ("cached" if bs is None else f"nvcc {bs:.1f} s") + " | "
-          + " | ".join(f"{n}: {v}" for n, v in
-                       ptxas_summary(fx.build_log).items()))
+          + ptxas_text(ptxas))
     st = K.KERNELS["static"]
     phase("build-static", f"{len(static_secs)} keys, {st.nvcc_runs} nvcc "
           f"builds: " + ", ".join(f"{d} {v:.1f} s" for d, v in
                                   static_secs.items())
           + f"; all builds {time.perf_counter() - t0:.1f} s | "
-          + " | ".join(f"{n}: {v}" for n, v in
-                       ptxas_summary(st.build_log).items()))
+          + ptxas_text(K.ptxas_info(st.build_log)))
+    ptxas.update(K.ptxas_info(st.build_log))
     static_runs = st.nvcc_runs
     from cudasp_tpu_torch.ops import probes as P
     pb = P.PROBES.build_seconds
@@ -974,6 +1099,29 @@ def main():
           + ("cached" if pb is None else f"nvcc {pb:.1f} s") + " | "
           + " | ".join(f"{n}: {v}" for n, v in
                        probe_ptxas(P.PROBES.build_log).items()))
+
+    # --- what ptxas made of the field code: SASS counts ------------------
+    nvcc = K.find_nvcc()
+    main_static = query(key, spend, ())[0].wnaf_static
+    sass = {}
+    for name, so in (("csrc/scan.cu", fx.library()._name),
+                     ("the main key's static unit",
+                      st.library(main_static)._name),
+                     ("csrc/probe.cu", P.PROBES.library()._name)):
+        counts = {n: c for n, c in K.sass_counts(so, nvcc).items()
+                  if not n.startswith("bench") or "field" in n}
+        sass.update(counts)
+        phase("sass", f"{name} (cuobjdump -sass): {sass_text(counts)}")
+
+    # --- the carry chains' PTX on the card --------------------------------
+    t0 = time.perf_counter()
+    pairs, bad = field_edges(torch.device("cuda"))
+    phase("field-edges", f"{len(CRAFTED) ** 2} crafted + "
+          f"{pairs - len(CRAFTED) ** 2} random edge-biased pairs, fe_mul / "
+          f"fe_sqr / fe_add / fe_sub on the card (field_kernel, "
+          f"{P.PROBES.field_launches} launches) == the carry chains' "
+          f"algorithm on Python integers (the op mod p, below 2^256): "
+          f"mismatches {bad} [{time.perf_counter() - t0:.1f} s]")
 
     # --- kernel vs plain on the card -------------------------------------
     # tallies by kernel: each ladder's exact wires, and "hi" (K12) for
@@ -1079,7 +1227,7 @@ def main():
             if (ladder, wire) in plain_at:
                 # the plain version once, on a main path's wire: its
                 # time, its field products (the bound) and its flags
-                F.PRODUCTS[0] = 0
+                reset_field_counts()
                 ev[0].record()
                 pf = K.scan_plain(*planes, digits, sp, lab, comb,
                                   wire="x" if hi else wire, ladder=ladder,
@@ -1088,25 +1236,31 @@ def main():
                 ev[1].record()
                 torch.cuda.synchronize()
                 t["plain_ms"] = ev[0].elapsed_time(ev[1])
-                products = F.PRODUCTS[0] / width
+                products, squares = field_counts()
                 tally("hi" if hi else ladder, check(
                     f"main-batch/{ladder}/{wire}", kf, K.pack_flag_words(pf),
                     width, exp_w, superset=hi is not None))
                 del pf
                 nbytes = (sum(p.numel() * 4 for p in planes) + width // 8
                           + comb.numel() * 4 + sp.numel() * 4)
-                ops = products * IMAD_PER_PRODUCT * width
+                ops, ops_old = imad_bounds(products, squares)
                 by_ops = ops / IMAD_PER_S > nbytes / HBM_BYTES_PER_S
-                t.update(products=products, bound_by="operations" if by_ops
-                         else "bytes", bound_ms=max(
-                             nbytes / HBM_BYTES_PER_S, ops / IMAD_PER_S) * 1e3)
+                t.update(products=products / width, squares=squares / width,
+                         bound_by="operations" if by_ops else "bytes",
+                         bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                      ops / IMAD_PER_S) * 1e3,
+                         bound_ms_products_only=max(
+                             nbytes / HBM_BYTES_PER_S,
+                             ops_old / IMAD_PER_S) * 1e3)
             kern.launches, kern.hi_launches = counts
             timing[ladder, wire] = t
             phase("kernel-time", f"{ladder}/{wire}, {width} rows: kernel "
                   f"{t['ms']:.3f} ms ({width / t['ms'] * 1e3:,.0f} rows/s)"
                   + (f", plain {t['plain_ms']:.1f} ms, bound "
                      f"{t['bound_ms']:.3f} ms by {t['bound_by']} "
-                     f"({t['products']:.0f} field products/row)"
+                     f"({t['products']:.0f} field products and "
+                     f"{t['squares']:.0f} squares a row; products only: "
+                     f"{t['bound_ms_products_only']:.3f} ms)"
                      if "plain_ms" in t else "")
                   + f" | {smi} [{time.perf_counter() - t0:.1f} s]")
     def ratio(ladder, wire):
@@ -1225,7 +1379,9 @@ def main():
                              f"scan kernel {full_launches}")
     imad = alu["int32 mul+add"]["ops_per_s"]
     fmul = bench["field mul"]["per_s"]
+    fsqr = bench["field sqr"]["per_s"]
     implied = IMAD_PER_S / IMAD_PER_PRODUCT
+    implied_sqr = IMAD_PER_S / IMAD_PER_SQUARE
     x_alu = P.to_device(P.raw_planes(np.random.default_rng(SEED),
                                      (8, width // 8), low=1), "cuda")
     clocks = sm_clock_under_load(x_alu)
@@ -1239,7 +1395,11 @@ def main():
           f"x); SM clock under that load, max: {clocks}; 64 x {sms} SMs "
           f"at that clock {at_clock / 1e12:.3f} T/s ({imad / at_clock:.3f}"
           f"x); field mul {fmul / 1e9:.1f} G products/s measured against "
-          f"{implied / 1e9:.1f} G implied ({fmul / implied:.3f}x); stages "
+          f"{implied / 1e9:.1f} G implied ({fmul / implied:.3f}x: "
+          f"{IMAD_PER_S / fmul:.0f} multiply-adds' time a product), field "
+          f"sqr {fsqr / 1e9:.1f} G/s against {implied_sqr / 1e9:.1f} G "
+          f"implied ({fsqr / implied_sqr:.3f}x: {IMAD_PER_S / fsqr:.0f} a "
+          f"square); stages "
           + ", ".join(f"{n} {stages[n]['ns_per_row']:.2f}"
                       for n in P.STAGES)
           + f" ns/row; budget {stages['budget']['ns_per_row']:.2f} against "
@@ -1267,7 +1427,11 @@ def main():
             "ms": v["ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None, "case": v["case"], "iters": v["iters"],
-            "lanes": v["lanes"], "products": v["products"]}
+            "lanes": v["lanes"], "products": v["products"],
+            "squares": v["squares"],
+            "bound_ms_products_only": v["bound_ms_products_only"],
+            "sass": {n: c for n, c in sass.items() if n.startswith("bench")}
+            if name == "bench_kernel" else None}
 
     def entry(name):
         _, ladder, wire = MAIN_PATHS[name]
@@ -1288,6 +1452,10 @@ def main():
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "products_per_row": t["products"],
+            "squares_per_row": t["squares"],
+            "bound_ms_products_only": t["bound_ms_products_only"],
+            "ptxas": ptxas.get(ladder),
+            "sass": sass.get(ladder),
             "library_ms": None,
         }
         if name == "hi":
@@ -1309,6 +1477,8 @@ def main():
         "runs_ms": sharded["runs_ms"], "plain_ms": sharded["plain_ms"],
         "bound_ms": sharded["bound_ms"], "bound_by": sharded["bound_by"],
         "products_per_row": sharded["products_per_row"],
+        "squares_per_row": sharded["squares_per_row"],
+        "bound_ms_products_only": sharded["bound_ms_products_only"],
         "exchange_ms": exchange["mesh4"]["ms"],
         "exchange_host_ms": exchange["mesh4"]["host_ms"],
         "all_cards": sharded["all_cards"] and {

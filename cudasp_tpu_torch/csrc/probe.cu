@@ -11,8 +11,9 @@
 // What bounds them on this card: alu_kernel, the issue rate of the op it
 // measures (it is the measurement of that peak); bench_kernel and
 // stage_kernel on a field or curve body, 32-bit integer multiply-add
-// issue, as the scan kernel (72 multiply-adds a field product). Each lane
-// reads and writes 4-64 bytes a launch, so memory is never the bound.
+// issue, as the scan kernel (72 multiply-adds a field product, 44 a
+// square). Each lane reads and writes 4-64 bytes a launch, so memory is
+// never the bound.
 // Design: a TPU kernel ran one VMEM tile on one core; here each lane is a
 // thread, 128 a block, and the default width (262,144 lanes, 2,048
 // blocks) fills all 132 SMs. `iters` is a runtime argument and the loop
@@ -69,6 +70,23 @@ stage_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
     for (int i = 0; i < 8; i++) out[i * B + r] = o.v[i];
 }
 
+// One field op a lane, out = op(a, b) as the op leaves it (below 2^256,
+// not canonical): chip_smoke.py's field-edges phase holds the carry
+// chains' PTX to Python integers with it. Op: 0 fe_mul, 1 fe_sqr, 2
+// fe_add, 3 fe_sub. Not a probe of the JAX package's tools.
+template <int Op>
+__global__ void __launch_bounds__(PROBE_THREADS)
+field_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+             uint32_t* __restrict__ out, int B) {
+    int r = blockIdx.x * PROBE_THREADS + threadIdx.x;
+    if (r >= B) return;
+    fe a = fe_load(x + r, B), b = fe_load(y + r, B);
+    fe o = Op == 0 ? fe_mul(a, b) : Op == 1 ? fe_sqr(a)
+         : Op == 2 ? fe_add(a, b) : fe_sub(a, b);
+    SP_UNROLL
+    for (int i = 0; i < 8; i++) out[i * B + r] = o.v[i];
+}
+
 }  // namespace probe
 }  // namespace sp
 
@@ -115,4 +133,16 @@ extern "C" int cudasp_probe_stage(int stage, const uint32_t* x,
                                                             iters, B);
     });
     return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+// op: index into ops/probes.py FIELD_OPS; x, y, out: (8, B) uint32 planes
+extern "C" int cudasp_probe_field(int op, const uint32_t* x,
+                                  const uint32_t* y, uint32_t* out, int B,
+                                  void* stream) {
+    if (B <= 0 || op < 0 || op > 3) return (int)cudaErrorInvalidValue;
+    auto kern = op == 0 ? field_kernel<0> : op == 1 ? field_kernel<1>
+              : op == 2 ? field_kernel<2> : field_kernel<3>;
+    kern<<<blocks(B), PROBE_THREADS, 0, (cudaStream_t)stream>>>(x, y, out,
+                                                               B);
+    return (int)cudaGetLastError();
 }

@@ -163,6 +163,10 @@ struct FieldAdd {
     static const bool RAW = false;
     SP_HD SP_INLINE void step(fe& a, fe& b) const { a = fe_add(a, b); }
 };
+// the scan kernel's own fe_mul and fe_sqr, inlined into the timed loop:
+// the product's 64 partial products as two chains of 64-bit multiply-adds
+// a row, the square's 28 cross products once plus 8 squares, each reduced
+// by two chains of the same shape (secp256k1.cuh)
 struct FieldMul {
     static const bool RAW = false;
     SP_HD SP_INLINE void step(fe& a, fe& b) const { a = fe_mul(a, b); }
@@ -296,11 +300,12 @@ struct Table {
     static const bool SMEM = false;
     SP_HD SP_INLINE fe operator()(fe a, fe b, const uint32_t*, uint8_t*,
                                   int) const {
-        OddTable t;
+        uint32_t buf[TAB_WORDS];
+        OddTable t{buf, 1};
         build_table(a, b, t);
-        fe acc = t.bx[0];
+        fe acc = t.get(TAB_BX);
         SP_ROLLED
-        for (int m = 1; m < 8; m++) acc = fe_add(acc, t.x[m]);
+        for (int m = 1; m < 8; m++) acc = fe_add(acc, t.get(TAB_X + m));
         return acc;
     }
 };

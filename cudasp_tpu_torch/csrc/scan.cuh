@@ -16,18 +16,35 @@
 // here), + spend / + labels, and the upper-64 semi-join (secp256k1.cuh).
 //
 // What bounds it on this card: 32-bit integer multiply-add issue. A row
-// costs about 3,100 field products with the fixed ladder (124 doublings
-// and 64 adds, four exponentiations of ~270 products each, the comb's 32
-// adds), about 220 fewer with the wNAF ladders (~43 adds); each product
-// is 64 32x32->64-bit multiply-adds plus the fold. The memory traffic is
-// ~60 bytes a row (36-48 on a cut wire). The wire is a runtime argument,
-// not a template parameter: it is uniform across a launch, changes only
-// the validity unfold and the final compare, and keeps each library at
-// one kernel per ladder (and the per-key build time where it was). This first version is one thread per row with no
-// shared-memory staging: the per-row table lives in local memory, and
-// fe_mul is a call, not inlined, to keep the build short. The ladder's
-// schedule is the same for every row, so its branches are warp-uniform.
-// Making it fast is later work.
+// costs about 3,100 field products and squares with the fixed ladder (124
+// doublings and 64 adds, four exponentiations of ~270 products each, the
+// comb's 32 adds), about 220 fewer with the wNAF ladders (~43 adds); a
+// product is 64 32x32-bit multiply-adds plus the fold, a square 36. The
+// memory traffic is ~60 bytes a row (36-48 on a cut wire). The wire is a
+// runtime argument, not a template parameter: it is uniform across a
+// launch, changes only the validity unfold and the final compare, and
+// keeps each library at one kernel per ladder (and the per-key build time
+// where it was).
+//
+// What the design does about it: one thread per row. The field product
+// and square (secp256k1.cuh) are chains of PTX multiply-adds with carry
+// (mad.lo.cc / madc.hi.cc), which ptxas turns into 64-bit multiply-adds
+// that carry through a predicate (IMAD.WIDE.U32.X): the product as an
+// even/odd split whose chains always write the same aligned register
+// pairs, the square with its 28 cross products once, both in registers
+// and reduced by two more chains of the same shape. They are inlined into
+// the point formulas, and the formulas into the fixed and wnaf ladders and
+// the comb. The per-key ladder's steps, a row's one-off doubling and adds
+// and the exponentiations (fe_inv, fe_sqrt: addition chains run as data)
+// are calls, and SHA-256 runs its rounds 16 at a time, which keeps nvcc's
+// time in bounds (PERF.md). The row's odd-multiple table (768 B) lives in
+// dynamic shared memory, a column per thread, so a pick at a runtime index
+// reads the thread's own bank: 6-7% faster than local memory through L1
+// on the fixed and wnaf ladders. SCAN_THREADS and the table's place are
+// the fastest setting of a sweep on the card that keeps a per-key unit
+// free of spills (PERF.md).
+// The ladder's schedule is the same for every row, so its branches are
+// warp-uniform.
 #pragma once
 
 #include "secp256k1.cuh"
@@ -38,6 +55,9 @@
 namespace sp {
 
 const int SCAN_THREADS = 128;
+// the block's odd-multiple tables in dynamic shared memory, a column a
+// thread (96 KB: 2 blocks an SM)
+const int SCAN_SMEM_BYTES = TAB_WORDS * 4 * SCAN_THREADS;
 
 template <class Ladder>
 __global__ void __launch_bounds__(SCAN_THREADS)
@@ -48,6 +68,8 @@ scan_kernel(const uint32_t* __restrict__ tw, const uint32_t* __restrict__ oh,
             const uint32_t* __restrict__ comb,
             const int32_t* __restrict__ blockmask, int block_rows, int B,
             int M, int wire_xy, int hi, int packed, void* flags) {
+    extern __shared__ uint32_t smem_table[];
+    const OddTable tab{smem_table + threadIdx.x, SCAN_THREADS};
     int r = blockIdx.x * SCAN_THREADS + threadIdx.x;
     int flag = 0;
     // block skip: rows of a dead tile write 0 and do no EC work
@@ -59,7 +81,7 @@ scan_kernel(const uint32_t* __restrict__ tw, const uint32_t* __restrict__ oh,
                              hi);
         flag = scan_row(tw + r, B, wire_xy, oh + r,
                         hi == HI_EXACT ? ol + r : nullptr, M, hi, v, lad,
-                        spend, labels, nlabels, comb);
+                        spend, labels, nlabels, comb, tab);
     }
     if (packed) {
         // 32 flags per uint32, bit i = row 32w + i (B is a multiple of 32)
@@ -84,8 +106,13 @@ int launch_scan(const Ladder& lad, const uint32_t* tw, const uint32_t* oh,
     if (hi < HI_EXACT || hi > HI_8 || (hi != HI_EXACT && wire_xy))
         return (int)cudaErrorInvalidValue;
     int blocks = (B + SCAN_THREADS - 1) / SCAN_THREADS;
+    // above 48 KB a block's dynamic shared memory must be asked for
+    int rc = (int)cudaFuncSetAttribute(
+        scan_kernel<Ladder>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SCAN_SMEM_BYTES);
+    if (rc != 0) return rc;
     if (blocks > 0)
-        scan_kernel<Ladder><<<blocks, SCAN_THREADS, 0,
+        scan_kernel<Ladder><<<blocks, SCAN_THREADS, SCAN_SMEM_BYTES,
                               (cudaStream_t)stream>>>(
             tw, oh, ol, ovm, lad, spend, labels, nlabels, comb, blockmask,
             block_rows, B, M, wire_xy, hi, packed, flags);

@@ -35,10 +35,12 @@ LB = 16                       # bits per plain limb
 M16 = (1 << LB) - 1
 NWORDS = 8                    # kernel words
 
-# products performed by mul/sqr since the last reset (one per element of
-# the batch shape); read by chip_smoke.py to count the field products a
-# row needs for the kernel's bound
+# products performed by mul, and squares by sqr, since the last reset (one
+# per element of the batch shape); read by chip_smoke.py to count the field
+# products and squares a row needs for the kernel's bound (the card squares
+# with 36 partial products where a product takes 64)
 PRODUCTS = [0]
+SQUARES = [0]
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +177,10 @@ def mul(a, b):
     """a * b (mod p), lazy in and out."""
     a, b = torch.broadcast_tensors(a, b)
     PRODUCTS[0] += a[..., 0].numel()
+    return _mul(a, b)
+
+
+def _mul(a, b):
     prod = a.unsqueeze(-1) * b.unsqueeze(-2)              # (..., 16, 16)
     lead = prod.shape[:-2]
     # skew rows: row i shifted right by i -> columns i + j
@@ -192,7 +198,8 @@ def mul(a, b):
 
 
 def sqr(a):
-    return mul(a, a)
+    SQUARES[0] += a[..., 0].numel()
+    return _mul(a, a)
 
 
 def sqr_n(a, n: int):

@@ -35,6 +35,7 @@ import ctypes
 import hashlib
 import operator
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -523,6 +524,96 @@ def source_library(src, sources, so_name):
         os.makedirs(out_dir, exist_ok=True)
         build = nvcc_build(nvcc, os.path.join(_CSRC, src), so)
     return ctypes.CDLL(so), build
+
+
+# What ptxas and cuobjdump report of the built libraries, by function:
+# (mangled-name key, and a part the name must also hold, short name)
+_INSTANTIATION = (("scan_kernel", "FixedLadder", "fixed"),
+                  ("scan_kernel", "WnafLadder", "wnaf"),
+                  ("scan_kernel", "KeyLadder", "static"),
+                  ("bench_kernel", "FieldMul", "bench field mul"),
+                  ("bench_kernel", "FieldSqr", "bench field sqr"),
+                  ("6fe_inv", "", "fe_inv"), ("7fe_sqrt", "", "fe_sqrt"),
+                  ("11pt_dbl_call", "", "pt_dbl_call"),
+                  ("12pt_madd_call", "", "pt_madd_call"))
+SASS_KINDS = ("IMAD", "IMAD.WIDE", "IMAD.HI", "IMAD.X", "IMAD.MOV", "IADD3",
+              "LDL", "STL", "CALL", "all")
+
+
+def label(mangled):
+    """A short name for a kernel or device function of the scan or probe
+    libraries, or None."""
+    for key, sub, name in _INSTANTIATION:
+        if key in mangled and sub in mangled:
+            return name
+    return None
+
+
+def ptxas_info(log):
+    """{short name: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from an nvcc -Xptxas -v log, for the functions label() names."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
+                      ln)
+        if m:
+            cur = label(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(cur, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+def cuobjdump(nvcc):
+    """The toolkit's cuobjdump beside nvcc; raises if it is missing."""
+    path = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc),
+                                                     "cuobjdump")
+    if not os.path.exists(path):
+        raise RuntimeError(f"cuobjdump not found beside {nvcc}")
+    return path
+
+
+def sass_counts(so, nvcc):
+    """{short name: {kind: count} for the SASS_KINDS} from cuobjdump -sass
+    of the library `so`, for the functions label() names (a device
+    function that stays a call is its own function there)."""
+    text = subprocess.run([cuobjdump(nvcc), "-sass", so], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = label(m.group(1))
+            if cur is not None:
+                out[cur] = dict.fromkeys(SASS_KINDS, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     ln)
+        if cur is None or m is None:
+            continue
+        op = m.group(1)
+        c = out[cur]
+        c["all"] += 1
+        base = op.split(".")[0]
+        if base in ("IMAD", "IADD3", "LDL", "STL", "CALL"):
+            c[base] += 1
+        if base == "IMAD":
+            for variant in ("WIDE", "HI", "MOV"):
+                if f".{variant}" in op:
+                    c[f"IMAD.{variant}"] += 1
+            if op.endswith(".X") or ".X." in op:
+                c["IMAD.X"] += 1
+    return out
 
 
 class ScanKernel:

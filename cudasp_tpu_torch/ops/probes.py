@@ -56,6 +56,8 @@ BENCH_CASES = (("int32 mul x4ilp", True, 4), ("int32 add x4ilp", True, 4),
                ("ec madd (8M+3S)", False, 1),
                ("field inv (Fermat)", False, 1))
 BENCH_NAMES = tuple(c[0] for c in BENCH_CASES)
+# the field ops of probe.cu's field_kernel, one a lane, raw
+FIELD_OPS = ("mul", "sqr", "add", "sub")
 STAGES = ("decompress", "ladder window", "table+inv", "serial+hash",
           "comb32", "comb32 smem", "match2")
 
@@ -248,13 +250,15 @@ class ProbeLibrary:
     ctypes; a library on disk is reused while its hash matches.
 
     launches: {kernel name: launches} of alu_kernel, bench_kernel and
-    stage_kernel, one added where each launches and nowhere else.
+    stage_kernel, one added where each launches and nowhere else;
+    field_launches: those of field_kernel, the field ops' check entry.
     nvcc_runs, build_seconds, build_log: this object's nvcc builds."""
 
     KERNEL_NAMES = ("alu_kernel", "bench_kernel", "stage_kernel")
 
     def __init__(self):
         self.launches = dict.fromkeys(self.KERNEL_NAMES, 0)
+        self.field_launches = 0
         self.nvcc_runs = 0
         self.build_seconds = None
         self.build_log = ""
@@ -274,8 +278,9 @@ class ProbeLibrary:
             lib.cudasp_probe_alu.argtypes = [ci, vp, vp, ci, ci, vp]
             lib.cudasp_probe_bench.argtypes = [ci, vp, vp, vp, ci, ci, vp]
             lib.cudasp_probe_stage.argtypes = [ci] + [vp] * 4 + [ci, ci, vp]
+            lib.cudasp_probe_field.argtypes = [ci, vp, vp, vp, ci, vp]
             for fn in (lib.cudasp_probe_alu, lib.cudasp_probe_bench,
-                       lib.cudasp_probe_stage):
+                       lib.cudasp_probe_stage, lib.cudasp_probe_field):
                 fn.restype = ci
             self._lib = lib
             return lib
@@ -371,6 +376,39 @@ def stage(x, y, index: int, iters: int, comb):
     out = torch.empty_like(x)
     PROBES.launch("stage_kernel", "cudasp_probe_stage", index,
                   (x, y, comb, out), iters, x.shape[1], x.device)
+    return out
+
+
+def field_plain(x, y, op: int):
+    """FIELD_OPS[op] of the (8, B) planes x and y, canonical."""
+    a, b = planes_to_fe(x), planes_to_fe(y)
+    ops = (F.mul, lambda u, _: F.sqr(u), F.add, F.sub)
+    return fe_to_planes(ops[op](a, b))
+
+
+def field_op(x, y, op: int):
+    """FIELD_OPS[op] of the (8, B) planes x and y, one lane a row. CUDA
+    tensors launch field_kernel, which returns the op's words as the
+    card's code leaves them (below 2^256, not canonical); CPU tensors run
+    field_plain (canonical: the same values mod p)."""
+    op = _case(op, FIELD_OPS, "op")
+    _check("x", x, x.device)
+    if x.dim() != 2 or x.shape[0] != 8:
+        raise ValueError("x must be (8, B)")
+    _check("y", y, x.device, x.shape)
+    if not _on_cuda(x):
+        return field_plain(x, y, op)
+    out = torch.empty_like(x)
+    lib = PROBES.library()
+    with torch.cuda.device(x.device):
+        rc = lib.cudasp_probe_field(op, x.data_ptr(), y.data_ptr(),
+                                    out.data_ptr(), x.shape[1],
+                                    torch.cuda.current_stream(x.device)
+                                    .cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"field_kernel ({FIELD_OPS[op]}) launch failed: "
+                           f"CUDA error {rc}")
+    PROBES.field_launches += 1
     return out
 
 
