@@ -36,12 +36,26 @@
 # table is scanned over make_mesh() (every card), over the 4-entry mesh,
 # over that mesh with the row exchange (rebalance=True) and on hi8, and a
 # 20,000-row table by two processes on gloo (parallel.distributed.
-# multihost_scan), each merge exact. Every phase prints one
-# line with its result and the elapsed seconds; any failure raises, so
-# the exit code is non-zero. The last lines are the kernels' JSON line,
-# the card's name and power limit, and {"ok": true, "device": ...}. A
-# watchdog ends a hung run with a stack trace. Imports torch, numpy and
-# cudasp_tpu_torch only.
+# multihost_scan), each merge exact. The user surface follows: scan_stream
+# over the 2,300,000 rows in 300,000-row chunks with a ScanCursor saved
+# after each, killed after chunk 4 and resumed from the saved file in
+# 250,000-row chunks (the cursor lands mid-chunk: exactly the planted
+# rows with scan()'s columns, only the uncovered rows scanned), timed
+# against scan(), and once over make_mesh(); SQLEngine() over the golden
+# cases written as SQL and a 200,000-row CREATE TABLE AS ... FROM range
+# table (== scan()); python -m cudasp_tpu_torch scan --metrics in a
+# subprocess (Parquet with --stream where pyarrow imports, else JSONL),
+# which must build nothing; a scan under CUDASP_PROFILE_DIR and
+# CUDASP_METRICS=1 (the trace holds the executor's spans and the scan
+# kernel's device event); and the main path with one batch's launch, then
+# one batch's result, failing once (batch_retries == 1, exact), and a
+# launch failing twice (ExecutionError names the batch). Every phase
+# prints one line with its result and the elapsed seconds; any failure
+# raises, so the exit code is non-zero. The last lines are the kernels'
+# JSON line, the card's name and power limit, and {"ok": true, "device":
+# ...}. A watchdog ends a hung run with a stack trace. Imports torch,
+# numpy, cudasp_tpu_torch and, for the CLI's Parquet input where it is
+# installed, pyarrow.
 import faulthandler
 
 faulthandler.dump_traceback_later(1080, exit=True)
@@ -964,7 +978,7 @@ def mesh_main_paths(table, planted, key, spend, smi):
               f"{MAIN_ROWS / secs:,.0f} tx/s; {len(res.indices)} matches == "
               f"planted; sharded launches {sharded} ({sharded / size:g} a "
               f"shard over {m.batches} batches), kernel launches {counts}; "
-              f"upload {m.upload_mode}, {m.batch_size} rows a batch; pack "
+              f"upload {m.upload_mode}, {m.launch_rows} rows a batch; pack "
               f"{m.pack_seconds:.3f} s, staging {m.upload_seconds:.3f} s, H2D "
               f"{m.h2d_seconds:.4f} s, device wait "
               f"{m.device_wait_seconds:.3f} s, "
@@ -1050,6 +1064,577 @@ def multihost_phase():
           f"({lines[0]['matches']} rows); {lines} "
           f"[{time.perf_counter() - t0:.1f} s]")
     return lines
+
+
+# --- the user surface: stream + cursor, SQL, CLI, trace, retry ----------
+STREAM_CHUNK = 300_000      # the reference's default batch size
+RESUME_CHUNK = 250_000      # another chunking: the cursor lands mid-chunk
+KILL_AFTER = 4              # the first stream dies after this many chunks
+SQL_ROWS = 200_000
+SQL_BATCH = 50_000
+SIDE_ROWS = 262_144         # the CLI's JSONL table and the traced scan
+SPANS = ("cudasp.pack", "cudasp.stage_h2d", "cudasp.launch", "cudasp.wait")
+# the keys of the JAX package's metrics line (cudasp_tpu/runtime/
+# metrics.py ScanMetrics.as_dict and runtime/trace.py emit_metrics)
+REFERENCE_METRIC_KEYS = (
+    "event", "rows_in", "rows_scanned", "batches", "matches", "pack_seconds",
+    "device_seconds", "total_seconds", "batch_size", "n_devices",
+    "upload_seconds", "upload_bytes", "device_wait_seconds",
+    "reverified_rows", "upload_mode", "prewarm_failures", "warm_variants",
+    "batch_retries", "rows_per_second", "bottleneck")
+
+
+class Killed(Exception):
+    """The stream's chunk source dies."""
+
+
+def reset_launches():
+    from cudasp_tpu_torch.ops import kernels as K
+
+    for kern in K.KERNELS.values():
+        kern.launches = kern.hi_launches = 0
+    K.SHARDED.launches = 0
+
+
+def launch_counts():
+    """(scan-kernel launches of every ladder, of them on a cut wire,
+    sharded launches) since reset_launches()."""
+    from cudasp_tpu_torch.ops import kernels as K
+
+    return (sum(k.launches for k in K.KERNELS.values()),
+            sum(k.hi_launches for k in K.KERNELS.values()),
+            K.SHARDED.launches)
+
+
+def rows_of(table, a, b):
+    from cudasp_tpu_torch.api import _slice_col
+
+    return {k: _slice_col(v, a, b) for k, v in table.items()}
+
+
+def table_chunks(table, rows, cursor=None, path=None, kill_after=None,
+                 saves=None):
+    """The table in `rows`-row chunks. With a cursor: saved to `path`
+    before each chunk after the first is handed out (scan_stream has then
+    recorded the one before it) and after the last, each save's (seconds,
+    bytes) appended to `saves`; kill_after: raise Killed once that many
+    chunks are done."""
+    n = len(table["height"])
+
+    def save():
+        t0 = time.perf_counter()
+        cursor.save(path)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+
+    for k, a in enumerate(range(0, n, rows)):
+        if cursor is not None and k:
+            save()
+        if kill_after is not None and k == kill_after:
+            raise Killed
+        yield rows_of(table, a, min(a + rows, n))
+    if cursor is not None:
+        save()
+
+
+def stream_batches(sizes, batch_size=STREAM_CHUNK):
+    """Batches scan() makes of chunks of these row counts on the card (its
+    launch width: the batch size and the chunk as powers of two, at most
+    TILE_CUDA)."""
+    from cudasp_tpu_torch.api import TILE_CUDA
+
+    def pow2(v, lo=128):
+        p = lo
+        while p < v:
+            p *= 2
+        return p
+
+    return sum(-(-n // max(BLOCK_ROWS, min(pow2(batch_size), pow2(n),
+                                           TILE_CUDA))) for n in sizes)
+
+
+def check_rows(name, res, ref):
+    """res == ref: indices, txid, height and tweak_key."""
+    import numpy as np
+
+    if not (np.array_equal(res.indices, ref.indices)
+            and np.array_equal(np.asarray(res.txid, np.int64),
+                               np.asarray(ref.txid, np.int64))
+            and np.array_equal(np.asarray(res.height, np.int64),
+                               np.asarray(ref.height, np.int64))
+            and np.array_equal(res.tweak_key, ref.tweak_key)):
+        raise AssertionError(f"{name}: {len(res.indices)} rows differ from "
+                             f"scan()'s {len(ref.indices)}")
+
+
+def stream_phase(table, planted, key, spend, smi):
+    """stream (this slice's main path): scan_stream over the whole table
+    in 300,000-row chunks with a ScanCursor saved after each, killed after
+    chunk 4, loaded in a fresh cursor and resumed in 250,000-row chunks
+    (the cursor lands mid-chunk): exactly the planted rows with scan()'s
+    columns, only the uncovered rows scanned, and their launches; then an
+    uninterrupted stream against scan() on the same table, the fixed cost
+    of a 1-row scan, and one stream over make_mesh(). Returns {path:
+    launches}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    fresh = ct.scan(table, key, spend)
+    torch.cuda.synchronize()
+    scan_secs = time.perf_counter() - t0
+    if not np.array_equal(fresh.indices, planted):
+        raise AssertionError("stream: scan() does not return the planted "
+                             "rows")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cursor.json")
+        # the uninterrupted stream, saved after every chunk
+        saves = []
+        cur = ct.ScanCursor()
+        t0 = time.perf_counter()
+        whole = ct.scan_stream(table_chunks(table, STREAM_CHUNK, cur, path,
+                                            saves=saves), key, spend,
+                               checkpoint=cur)
+        torch.cuda.synchronize()
+        stream_secs = time.perf_counter() - t0
+        check_rows("stream", whole, fresh)
+        nchunks = -(-MAIN_ROWS // STREAM_CHUNK)
+        save_secs = sum(s for s, _ in saves)
+        # the same stream without a cursor
+        t0 = time.perf_counter()
+        bare = ct.scan_stream(table_chunks(table, STREAM_CHUNK), key, spend)
+        torch.cuda.synchronize()
+        bare_secs = time.perf_counter() - t0
+        check_rows("stream without a cursor", bare, fresh)
+        # the killed run, then the resumed one: counts to 0 before each
+        reset_launches()
+        first = ct.ScanCursor()
+        try:
+            ct.scan_stream(table_chunks(table, STREAM_CHUNK, first, path,
+                                        kill_after=KILL_AFTER, saves=[]),
+                           key, spend, checkpoint=first)
+            raise AssertionError("stream: the chunk source did not die")
+        except Killed:
+            pass
+        torch.cuda.synchronize()
+        killed = launch_counts()
+        cur = ct.ScanCursor.load(path)
+        done = cur.rows_done
+        sizes = [min(a + RESUME_CHUNK, MAIN_ROWS) - max(a, done)
+                 for a in range(0, MAIN_ROWS, RESUME_CHUNK)
+                 if a + RESUME_CHUNK > done]
+        reset_launches()
+        t0 = time.perf_counter()
+        res = ct.scan_stream(table_chunks(table, RESUME_CHUNK), key, spend,
+                             checkpoint=cur)
+        torch.cuda.synchronize()
+        resume_secs = time.perf_counter() - t0
+        total, cut, _ = launch_counts()
+        cursor_bytes = os.path.getsize(path) if os.path.exists(path) else 0
+    check_rows("stream-resume", res, fresh)
+    m = res.metrics
+    uncovered = MAIN_ROWS - done
+    want = stream_batches(sizes)
+    if done != KILL_AFTER * STREAM_CHUNK or done % RESUME_CHUNK == 0 \
+            or sum(sizes) != uncovered or m.rows_in != uncovered \
+            or m.rows_scanned != uncovered or m.batches != want \
+            or total < want or (total > want) != bool(m.reverified_rows) \
+            or killed[0] < stream_batches([STREAM_CHUNK] * KILL_AFTER):
+        raise AssertionError(
+            f"stream-resume: cursor at {done}, resumed rows_in {m.rows_in}, "
+            f"rows_scanned {m.rows_scanned}, batches {m.batches} (expected "
+            f"{want} over chunks {sizes}), launches {total} ({cut} cut), "
+            f"killed run's launches {killed}")
+    launches["stream-killed"], launches["stream-resume"] = killed[0], total
+    phase("stream", f"scan_stream over {MAIN_ROWS} rows in {STREAM_CHUNK}-"
+          f"row chunks, a ScanCursor saved after each: {len(whole.indices)} "
+          f"matches, columns == scan()'s; killed after chunk {KILL_AFTER} "
+          f"({killed[0]} launches), the cursor ({done} rows done) loaded "
+          f"afresh and resumed in {RESUME_CHUNK}-row chunks: rows_in "
+          f"{m.rows_in} == rows_scanned == the uncovered {uncovered} "
+          f"(chunks {sizes}), {total} launches ({cut} on a cut wire) == "
+          f"{m.batches} batches (a whole rescan: "
+          f"{stream_batches([RESUME_CHUNK] * 9 + [MAIN_ROWS % RESUME_CHUNK])}"
+          f"), upload {m.upload_mode}; {len(res.indices)} matches == planted"
+          f", txid / height / tweak_key == scan()'s, in {resume_secs:.3f} s")
+
+    # the fixed cost of a scan() call: a 1-row table, median of 5
+    one = rows_of(table, 0, 1)
+    ct.scan(one, key, spend)
+    fixed = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ct.scan(one, key, spend)
+        torch.cuda.synchronize()
+        fixed.append(time.perf_counter() - t0)
+    fixed_ms = sorted(fixed)[2] * 1e3
+    bm = bare.metrics
+    phase("stream-time", f"scan() {MAIN_ROWS / scan_secs:,.0f} tx/s "
+          f"({scan_secs:.3f} s, {fresh.metrics.batches} batches) against "
+          f"scan_stream in {nchunks} chunks ({bm.batches} batches): "
+          f"without a cursor {MAIN_ROWS / bare_secs:,.0f} tx/s "
+          f"({bare_secs:.3f} s, of it {bm.total_seconds:.3f} s in the "
+          f"chunks' scans: pack {bm.pack_seconds:.3f} s, staging "
+          f"{bm.upload_seconds:.3f} s, device wait "
+          f"{bm.device_wait_seconds:.3f} s; "
+          f"{(bare_secs - scan_secs) / nchunks * 1e3:.2f} ms a chunk over "
+          f"scan()); with the cursor saved after each chunk "
+          f"{MAIN_ROWS / stream_secs:,.0f} tx/s ({stream_secs:.3f} s: "
+          f"{len(saves)} saves {save_secs:.3f} s, the last "
+          f"{saves[-1][1] / 1e6:.2f} MB in "
+          f"{saves[-1][0] * 1e3:.1f} ms; the cursor's bookkeeping "
+          f"{(stream_secs - save_secs - bare_secs) / nchunks * 1e3:.2f} ms "
+          f"a chunk); a 1-row scan() {fixed_ms:.2f} ms (median of 5); the "
+          f"resumed cursor {cursor_bytes / 1e6:.2f} MB | {smi}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    mres = ct.scan_stream(table_chunks(table, STREAM_CHUNK), key, spend,
+                          config=ct.ScanConfig(mesh=make_mesh()))
+    torch.cuda.synchronize()
+    msecs = time.perf_counter() - t0
+    total, _, sharded = launch_counts()
+    check_rows("stream-mesh", mres, fresh)
+    if sharded <= 0 or sharded != total:
+        raise AssertionError(f"stream-mesh: sharded launches {sharded}, "
+                             f"kernel launches {total}")
+    launches["stream-mesh"] = sharded
+    phase("stream-mesh", f"scan_stream over make_mesh() "
+          f"({mres.metrics.n_devices} entries): {len(mres.indices)} matches "
+          f"== scan()'s rows, {sharded} sharded launches, "
+          f"{MAIN_ROWS / msecs:,.0f} tx/s | {smi}")
+    return launches
+
+
+def sql_blob(b):
+    return "BLOB '" + "".join(f"\\x{v:02x}" for v in bytes(b)) + "'"
+
+
+def sql_scan(table, key, spend, labels, batch=None):
+    return (f"cudasp_scan((SELECT * FROM {table}), {sql_blob(key)}, "
+            f"{sql_blob(spend)}, [" + ", ".join(sql_blob(lb) for lb in labels)
+            + "]" + (f", batch_size := {batch}" if batch else "") + ")")
+
+
+def sql_phase(smi):
+    """sql: SQLEngine() (the port's scan, on the card) over every golden
+    case written as SQL (CREATE TABLE, INSERT ... VALUES with BLOB and
+    list literals, SELECT ... FROM cudasp_scan(...) with labels and the
+    wrong-key cases), then a bulk table made by CREATE TABLE AS SELECT
+    ... FROM range(200000) scanned with batch_size := 50000, whose rows
+    must equal scan() on the same columns. Returns the bulk scan's
+    launches."""
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.oracle import vectors as V
+    from cudasp_tpu_torch.sql import SQLEngine
+
+    eng = SQLEngine()
+    for k, case in enumerate(V.CASES):
+        t = f"g{k}"
+        eng.execute(f"CREATE TABLE {t} (txid BLOB, height INTEGER, "
+                    "tweak_key BLOB, outputs BIGINT[])")
+        eng.execute(f"INSERT INTO {t} VALUES " + ", ".join(
+            f"({sql_blob(r.txid)}, {r.height}, {sql_blob(r.tweak_blob)}, "
+            f"[{', '.join(map(str, r.outputs))}])" for r in case.rows))
+        got = eng.execute("SELECT height, txid, tweak_key FROM " + sql_scan(
+            t, case.scan_key_blob, case.spend_blob, case.label_blobs))
+        want = [(r.height, bytes(r.txid), bytes(r.tweak_blob))
+                for h in case.expected_heights for r in case.rows
+                if r.height == h]
+        if got != want:
+            raise AssertionError(f"sql {case.name}: {got} != {want}")
+    case = next(c for c in V.CASES if c.expected_heights and not
+                c.label_blobs)
+    row = next(r for r in case.rows if r.height == case.expected_heights[0])
+    eng.execute(f"CREATE TABLE bulk AS SELECT {sql_blob(row.txid)} AS txid, "
+                f"range AS height, {sql_blob(row.tweak_blob)} AS tweak_key, "
+                f"[{', '.join(map(str, row.outputs))}] AS outputs "
+                f"FROM range({SQL_ROWS})")
+    scan_sql = sql_scan("bulk", case.scan_key_blob, case.spend_blob, (),
+                        SQL_BATCH)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = eng.execute(f"SELECT txid, height, tweak_key FROM {scan_sql}")
+    eng_secs = time.perf_counter() - t0
+    launches = launch_counts()[0]
+    count = eng.execute(f"SELECT COUNT(*) FROM {scan_sql}")
+    none = eng.execute("SELECT COUNT(*) FROM " + sql_scan(
+        "bulk", bytes(32 - 1) + b"\x07", case.spend_blob, (), SQL_BATCH))
+    t0 = time.perf_counter()
+    res = ct.scan(eng.tables["bulk"], case.scan_key_blob, case.spend_blob,
+                  batch_size=SQL_BATCH)
+    torch.cuda.synchronize()
+    scan_secs = time.perf_counter() - t0
+    want = [(bytes(t), int(h), bytes(tw)) for t, h, tw in
+            zip(res.txid, res.height, res.tweak_key)]
+    if got != want or count != [(SQL_ROWS,)] or len(got) != SQL_ROWS \
+            or none != [(0,)] or launches < -(-SQL_ROWS // 65536):
+        raise AssertionError(f"sql bulk: {len(got)} rows against scan()'s "
+                             f"{len(want)}, COUNT(*) {count}, another key "
+                             f"{none}, launches {launches}")
+    phase("sql", f"SQLEngine() on the card: {len(V.CASES)} golden cases as "
+          f"SQL (CREATE / INSERT / cudasp_scan with labels and the wrong-key "
+          f"cases) == expected; bulk CREATE TABLE AS ... FROM "
+          f"range({SQL_ROWS}), batch_size := {SQL_BATCH}: {len(got)} rows "
+          f"== scan() on the same columns, COUNT(*) {count[0][0]}, another "
+          f"key 0; {launches} launches; engine {eng_secs:.3f} s against "
+          f"scan() {scan_secs:.3f} s | {smi}")
+    return launches
+
+
+def build_files():
+    """(path, mtime, size) of every file under the kernels' build tree."""
+    from cudasp_tpu_torch.ops import kernels as K
+
+    out = set()
+    for d, _, files in os.walk(K._BUILD_ROOT):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out.add((os.path.join(d, f), st.st_mtime_ns, st.st_size))
+    return out
+
+
+def cli_phase(table, planted, key, spend, smi):
+    """cli: python -m cudasp_tpu_torch scan ... --metrics in a subprocess
+    on the card: Parquet with --stream over the whole table where pyarrow
+    imports, else JSONL of the first 262,144 rows; its JSONL rows ==
+    planted, its metrics line parsed, and no file of the build tree
+    written (0 nvcc builds: the libraries this process built serve it).
+    Returns the subprocess's batches (its metrics line)."""
+    import tempfile
+
+    import numpy as np
+
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError:
+        pa = None
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if pa is not None:
+            rows, how = MAIN_ROWS, (f"parquet, --stream {STREAM_CHUNK} "
+                                    "(pyarrow imports here)")
+            path = os.path.join(tmp, "table.parquet")
+            flat, offs = table["outputs"]
+
+            def binary(a, width):
+                return pa.FixedSizeBinaryArray.from_buffers(
+                    pa.binary(width), len(a),
+                    [None, pa.py_buffer(a.tobytes())]).cast(pa.binary())
+
+            pq.write_table(pa.table({
+                "txid": binary(table["txid"].astype(">i8"), 8),
+                "height": pa.array(table["height"], pa.int64()),
+                "tweak_key": binary(table["tweak_key"], 64),
+                "outputs": pa.ListArray.from_arrays(
+                    pa.array(offs.astype(np.int32)), pa.array(flat)),
+            }), path)
+            extra = ["--stream", str(STREAM_CHUNK)]
+        else:
+            rows, how = SIDE_ROWS, ("JSONL of the first rows: pyarrow does "
+                                    "not import here, and --stream needs "
+                                    "Parquet")
+            path = os.path.join(tmp, "table.jsonl")
+            flat, offs = table["outputs"]
+            with open(path, "w") as f:
+                for i in range(rows):
+                    f.write(json.dumps({
+                        "txid": int(table["txid"][i]).to_bytes(8, "big").hex(),
+                        "height": int(table["height"][i]),
+                        "tweak_key": table["tweak_key"][i].tobytes().hex(),
+                        "outputs": flat[offs[i]:offs[i + 1]].tolist()}) + "\n")
+            extra = []
+        write_secs = time.perf_counter() - t0
+        before = build_files()
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cudasp_tpu_torch", "scan", "--input",
+             path, "--scan-key", key.hex(), "--spend-key", spend.hex(),
+             "--metrics", *extra], cwd=root, env=env, capture_output=True,
+            text=True, timeout=600)
+        secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    out = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    metrics = json.loads(next(ln for ln in proc.stderr.splitlines()
+                              if ln.startswith("{")))
+    want = planted[planted < rows]
+    rebuilt = build_files() ^ before
+    if [r["row"] for r in out] != want.tolist() \
+            or [r["height"] for r in out] != (want + 800_000).tolist() \
+            or metrics["rows_in"] != rows or metrics["matches"] != len(want) \
+            or rebuilt:
+        raise AssertionError(f"cli: {len(out)} rows (expected {len(want)}), "
+                             f"metrics {metrics}, build files written "
+                             f"{sorted(rebuilt)[:4]}")
+    phase("cli", f"python -m cudasp_tpu_torch scan --metrics in a "
+          f"subprocess on the card, {how}: {rows} rows, {len(out)} JSONL "
+          f"rows == planted; metrics line: {metrics['batches']} batches, "
+          f"upload {metrics['upload_mode']}, scan wall "
+          f"{metrics['wall_seconds']} s ({rows / metrics['wall_seconds']:,.0f}"
+          f" tx/s), total_seconds {metrics['total_seconds']:.3f} (pack "
+          f"{metrics['pack_seconds']:.3f}, staging "
+          f"{metrics['upload_seconds']:.3f}, device wait "
+          f"{metrics['device_wait_seconds']:.3f}); the "
+          f"subprocess {secs:.1f} s (load, scan, write); the input written "
+          f"in {write_secs:.1f} s; 0 nvcc builds (no file of the build "
+          f"tree written) | {smi}")
+    return metrics["batches"]
+
+
+def trace_phase(table, key, spend, smi):
+    """trace: a 262,144-row scan under CUDASP_PROFILE_DIR and
+    CUDASP_METRICS=1: the trace file holds the executor's spans and the
+    scan kernel's device event (where CUPTI records kernels; else the
+    launch's runtime event, and the line says which), and the metrics
+    line has every key of the JAX package's. Returns the traced scan's
+    launches."""
+    import contextlib
+    import glob
+    import io
+    import tempfile
+
+    import torch
+
+    import cudasp_tpu_torch as ct
+
+    head = rows_of(table, 0, SIDE_ROWS)
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ct.scan(head, key, spend)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CUDASP_PROFILE_DIR"] = tmp
+        os.environ["CUDASP_METRICS"] = "1"
+        traced = []
+        try:
+            # the first traced scan in the process pays the profiler's
+            # start-up; the second is the steady cost, and is checked
+            for _ in range(2):
+                for f in glob.glob(os.path.join(tmp, "scan-*.json")):
+                    os.remove(f)
+                err = io.StringIO()
+                reset_launches()
+                with contextlib.redirect_stderr(err):
+                    t0 = time.perf_counter()
+                    ct.scan(head, key, spend)
+                    torch.cuda.synchronize()
+                    traced.append(time.perf_counter() - t0)
+        finally:
+            del os.environ["CUDASP_PROFILE_DIR"], os.environ["CUDASP_METRICS"]
+        launches = launch_counts()[0]
+        files = glob.glob(os.path.join(tmp, "scan-*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace: {len(files)} trace files")
+        trace_bytes = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    device = [e for e in events if e.get("cat") == "kernel"
+              and "scan_kernel" in e.get("name", "")]
+    runtime = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                      "cuda_driver")
+               and "aunch" in e.get("name", "")]
+    line = [json.loads(ln) for ln in err.getvalue().splitlines()
+            if '"scan_metrics"' in ln]
+    missing = set(REFERENCE_METRIC_KEYS) - set(line[0]) if line else None
+    if not set(SPANS) <= names or not (device or runtime) or missing \
+            or len(line) != 1 or launches <= 0:
+        raise AssertionError(
+            f"trace: spans {sorted(set(SPANS) - names)} missing, "
+            f"{len(device)} kernel events, {len(runtime)} launch events, "
+            f"{len(line)} metrics lines, keys missing {missing}")
+    held = (f"{len(device)} device events of the scan kernel "
+            f"({device[0]['name'][:60]}..., {device[0].get('dur')} us)"
+            if device else
+            f"no device kernel event (CUPTI records no kernels here): the "
+            f"launch's runtime events instead, {len(runtime)} "
+            f"({sorted({e['name'] for e in runtime})})")
+    phase("trace", f"{SIDE_ROWS}-row scan under CUDASP_PROFILE_DIR and "
+          f"CUDASP_METRICS=1: one trace file ({trace_bytes / 1e6:.2f} MB, "
+          f"{len(events)} events) with the spans {list(SPANS)} and {held}; "
+          f"the metrics line has all {len(REFERENCE_METRIC_KEYS)} keys of "
+          f"the JAX package's ({len(line[0])} in all); scan {secs[1]:.3f} s "
+          f"without the profiler, {traced[1]:.3f} s with it (the first "
+          f"traced scan of the process {traced[0]:.3f} s); {launches} "
+          f"launches | {smi}")
+    return launches
+
+
+def retry_phase(table, planted, key, spend, smi):
+    """retry: the 2,300,000-row main path with the launch wrapper
+    (ops.kernels.scan_flags, patched here) failing once at batch 2, and
+    with a batch's result failing once at batch 4 (the executor's wait on
+    the card, where a fault of the card shows): batch_retries == 1 and
+    the planted rows, each; then batch 2's launch failing twice:
+    ExecutionError(2). Returns the launches of the first run."""
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.ops import kernels as K
+    from cudasp_tpu_torch.runtime import executor as X
+
+    real_launch, real_wait = K.scan_flags, X._Cuda.wait
+    state = {"launch": 0, "wait": 0, "fail": ()}
+
+    def counted(what, real):
+        def fn(*a, **kw):
+            state[what] += 1
+            if (what, state[what]) in state["fail"]:
+                raise RuntimeError(f"injected {what} fault")
+            return real(*a, **kw)
+        return fn
+
+    K.scan_flags = counted("launch", real_launch)
+    X._Cuda.wait = counted("wait", real_wait)
+    runs = []
+    try:
+        for fail in ({("launch", 3)}, {("wait", 5)}):
+            state.update(launch=0, wait=0, fail=fail)
+            reset_launches()
+            t0 = time.perf_counter()
+            res = ct.scan(table, key, spend)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            m = res.metrics
+            if m.batch_retries != 1 or not np.array_equal(res.indices,
+                                                          planted) \
+                    or not np.array_equal(res.height, planted + 800_000):
+                raise AssertionError(f"retry {fail}: batch_retries "
+                                     f"{m.batch_retries}, {len(res)} rows")
+            runs.append((fail, launch_counts()[0], m.batches, secs))
+        state.update(launch=0, wait=0, fail={("launch", 3), ("launch", 4)})
+        try:
+            ct.scan(table, key, spend)
+            raise AssertionError("retry: a batch that failed twice did not "
+                                 "raise")
+        except ct.ExecutionError as e:
+            err = e
+        if err.batch_index != 2 or "batch 2 failed" not in str(err):
+            raise AssertionError(f"retry: {err!r} names another batch")
+    finally:
+        K.scan_flags, X._Cuda.wait = real_launch, real_wait
+        torch.cuda.synchronize()
+    phase("retry", "; ".join(
+        f"{next(iter(f))[0]} of batch {next(iter(f))[1] - 1} failing once: "
+        f"batch_retries 1, {n} launches for {b} batches, matches == planted "
+        f"in {s:.3f} s" for f, n, b, s in runs)
+        + f"; batch 2's launch failing twice: {err} | {smi}")
+    return runs[0][1]
 
 
 def main():
@@ -1320,7 +1905,7 @@ def main():
         phase("main-path", f"ScanConfig({fields}): {MAIN_ROWS} rows in "
               f"{secs:.3f} s = {MAIN_ROWS / secs:,.0f} tx/s end to end; "
               f"{len(res.indices)} matches == planted; launches {counts}; "
-              f"ladder {m.ladder}, upload {m.upload_mode}, {m.batch_size} "
+              f"ladder {m.ladder}, upload {m.upload_mode}, {m.launch_rows} "
               f"rows a launch; pack {m.pack_seconds:.3f} s, staging "
               f"{m.upload_seconds:.3f} s, H2D {m.h2d_seconds:.4f} s, device "
               f"wait {m.device_wait_seconds:.3f} s, "
@@ -1337,6 +1922,15 @@ def main():
         raise AssertionError("second static scan: wrong matches")
     phase("static-cache", "warm-up, main path and a second static scan "
           "with the same key: 0 nvcc runs after the build")
+
+    # --- the user surface: the stream (this slice's main path: killed and
+    # resumed from its cursor), SQL, the CLI, tracing, batch retry -------
+    surface = stream_phase(table, planted, key, spend, smi)
+    surface["sql"] = sql_phase(smi)
+    surface["cli (batches, its metrics line)"] = cli_phase(
+        table, planted, key, spend, smi)
+    surface["trace"] = trace_phase(table, key, spend, smi)
+    surface["retry"] = retry_phase(table, planted, key, spend, smi)
 
     # --- the sharded scan: against the single launch and the plain
     # version, timed; the mesh main paths; two processes on gloo ---------
@@ -1461,6 +2055,9 @@ def main():
         if name == "hi":
             e.update({f"ms_{lad}_{hi}": timing[lad, hi]["ms"]
                       for lad in LADDERS for hi in CUTS})
+        if name == "fixed":
+            e["launches_by_path"] = {k: v for k, v in surface.items()
+                                     if k != "stream-mesh"}
         return e
 
     sharded_entry = {
@@ -1470,7 +2067,8 @@ def main():
         "replaces": "cudasp_tpu/ops/kernels.py:832-893",
         "mesh": "4 x cuda:0", "wire": "x",
         "launches": mesh_launches["mesh4"],
-        "launches_by_path": mesh_launches,
+        "launches_by_path": {**mesh_launches,
+                             "stream-mesh": surface["stream-mesh"]},
         "mismatches": sharded["mismatches"],
         "max_abs_err": sharded["max_abs_err"],
         "ms": sharded["ms"], "single_ms": sharded["single_ms"],

@@ -2,15 +2,19 @@
 
 The port of the JAX package `cudasp_tpu` to one NVIDIA H100: the same
 `scan` table function, with the fused TPU scan kernel rewritten by hand in
-CUDA C++ for sm_90a (csrc/). Entry points run on the GPU unless the caller
-passes device="cpu", which runs the kernel's plain-torch version. Imports
-torch and numpy, never jax and nothing of cudasp_tpu.
+CUDA C++ for sm_90a (csrc/); `scan_stream` with a resumable ScanCursor;
+the CLI (`python -m cudasp_tpu_torch scan|sql`) and the SQL front end
+(`cudasp_tpu_torch.sql`, the `cudasp_scan` table function). Entry points
+run on the GPU unless the caller passes device="cpu", which runs the
+kernel's plain-torch version. Imports torch and numpy, never jax and
+nothing of cudasp_tpu.
 """
 
 import numpy as np
 
-from .api import ScanConfig, ScanResult, scan
+from .api import ScanConfig, ScanResult, scan, scan_stream
 from .ops.field import limbs13_to_words
+from .runtime.checkpoint import ScanCursor
 from .runtime.errors import BindError, CudaspError, ExecutionError, IngestError
 
 
@@ -21,5 +25,6 @@ def from_jax_limbs(limbs, axis: int = 0) -> np.ndarray:
     return limbs13_to_words(np.asarray(limbs), axis)
 
 
-__all__ = ["scan", "ScanConfig", "ScanResult", "from_jax_limbs",
+__all__ = ["scan", "scan_stream", "ScanConfig", "ScanResult", "ScanCursor",
+           "from_jax_limbs",
            "CudaspError", "BindError", "IngestError", "ExecutionError"]

@@ -1,11 +1,13 @@
-"""Public scan API (counterpart of cudasp_tpu/api.py:26-551).
+"""Public scan API (counterpart of cudasp_tpu/api.py).
 
 `scan(...)` is the DuckDB-style table function of the system: a table of
 (txid, height, tweak_key, outputs) rows in, the rows that pay the wallet
-out. Same wire formats and semantics as the JAX package.
+out. Same wire formats and semantics as the JAX package. `scan_stream`
+scans an iterator of chunks with bounded host memory and, given a
+runtime.checkpoint.ScanCursor, resumes where a dead scan stopped.
 
-It runs on the GPU unless the caller passes device="cpu"; without a CUDA
-device it raises instead of falling back. On the GPU every batch goes
+Both run on the GPU unless the caller passes device="cpu"; without a
+CUDA device they raise instead of falling back. On the GPU every batch goes
 through the hand-written scan kernel; on the CPU through its plain-torch
 version. With ScanConfig(mesh=parallel.mesh.make_mesh()) each batch is
 split over the mesh's entries, one launch each (and, with rebalance=True,
@@ -25,6 +27,7 @@ from .runtime.errors import BindError, IngestError
 from .ops.kernels import LADDERS
 from .runtime.executor import UPLOADS, BatchExecutor
 from .runtime.metrics import ScanMetrics, Timer
+from .runtime.trace import emit_metrics, trace_scan
 
 DEFAULT_BATCH_SIZE = 300_000       # the reference's default batch size
 MAX_BATCH_SIZE = 10_000_000        # the reference's cap
@@ -134,6 +137,20 @@ def _normalize_outputs(col) -> Tuple[np.ndarray, np.ndarray]:
         [[] if o is None else [v for v in o if v is not None] for o in col])
 
 
+def _slice_col(col, a: int, b: int):
+    """Rows [a, b) of a column of any supported type (numpy, list, pyarrow
+    array, CSR outputs tuple): scan_stream's mid-chunk resume and
+    runtime.checkpoint's chunks."""
+    if isinstance(col, tuple) and len(col) == 2:        # CSR outputs
+        flat, offs = col
+        offs = np.asarray(offs, np.int64)
+        flat = np.asarray(flat, np.int64)
+        return (flat[offs[a]:offs[b]], offs[a:b + 1] - offs[a])
+    if hasattr(col, "slice"):                           # pyarrow
+        return col.slice(a, b - a)
+    return col[a:b]
+
+
 def _table_columns(table) -> Dict[str, object]:
     """dict-like or pyarrow.Table -> column mapping."""
     if hasattr(table, "column_names") and hasattr(table, "column"):
@@ -206,9 +223,190 @@ def scan(table, scan_private_key: bytes, spend_public_key: bytes,
     spend_public_key: 64-byte LE point blob
     label_keys: 64-byte LE point blobs
     device: "cuda" (default) or "cpu"; with config.mesh, the mesh's
-    devices decide, and a device of another type is a BindError."""
-    return _scan_impl(table, scan_private_key, spend_public_key, label_keys,
-                      batch_size=batch_size, config=config, device=device)
+    devices decide, and a device of another type is a BindError.
+
+    Set CUDASP_PROFILE_DIR to write a torch.profiler trace of the scan
+    there, and CUDASP_METRICS=1 to print one JSON line of its metrics on
+    stderr (runtime.trace)."""
+    with trace_scan():
+        res = _scan_impl(table, scan_private_key, spend_public_key,
+                         label_keys, batch_size=batch_size, config=config,
+                         device=device)
+    if os.environ.get("CUDASP_METRICS"):
+        emit_metrics(res.metrics)
+    return res
+
+
+# ScanMetrics fields a stream adds up over its chunks; of the others, the
+# last chunk's value stands (upload_mode: the last that was set)
+_SUMMED = ("rows_in", "rows_scanned", "batches", "pack_seconds",
+           "device_seconds", "total_seconds", "upload_seconds",
+           "upload_bytes", "h2d_seconds", "device_wait_seconds",
+           "reverified_rows", "exchange_seconds", "exchange_bytes",
+           "batch_retries")
+_LAST = ("batch_size", "launch_rows", "n_devices", "ladder",
+         "kernel0_seconds", "link_bytes_per_second", "prewarm_failures",
+         "warm_variants")
+
+
+def scan_stream(chunks, scan_private_key: bytes, spend_public_key: bytes,
+                label_keys: Sequence[bytes] = (), *,
+                config: Optional[ScanConfig] = None, checkpoint=None,
+                device=None) -> ScanResult:
+    """Scan an iterator of table chunks with bounded host memory.
+
+    Each chunk (a column mapping, or a pyarrow RecordBatch or Table) is
+    scanned on its own and only its matching rows are kept; the kernel
+    libraries, the process's "auto" memo and the pinned-memory cache
+    carry over from chunk to chunk. Returns one ScanResult with indices
+    global to the stream; its metrics add up the chunks' (total_seconds:
+    the chunks' scans, not the time spent reading them).
+
+    checkpoint: a runtime.checkpoint.ScanCursor, advanced after every
+    chunk (the caller saves it, for example from the chunk iterator).
+    Chunks the cursor covers are skipped without packing; where it ends
+    inside a chunk (another chunking), only the rest of that chunk is
+    scanned. A cursor of another query is a BindError. A resumed stream
+    returns the full txid / height / tweak_key columns, the earlier run's
+    from the cursor's match_rows (indices only from a cursor without
+    them). txid and height must be in every chunk or in none
+    (IngestError). device: as for scan()."""
+    from .runtime.checkpoint import _query_digest
+
+    if checkpoint is not None:
+        digest = _query_digest(scan_private_key, spend_public_key,
+                               label_keys)
+        if checkpoint.query_digest and checkpoint.query_digest != digest:
+            raise BindError(
+                "checkpoint was written by a different query (key "
+                "mismatch); refusing to resume")
+        checkpoint.query_digest = digest
+    resumed = checkpoint is not None and checkpoint.rows_done > 0
+    # before the loop extends checkpoint.matches: the rows that come from
+    # the cursor, not from this run
+    prior_matches = (sorted({int(m) for m in checkpoint.matches})
+                     if resumed else [])
+
+    idx_parts: List[np.ndarray] = []
+    txid_parts, height_parts, tweak_parts = [], [], []
+    agg = ScanMetrics() if (config is None or config.collect_metrics) else None
+    offset = 0
+    pt_schema = None       # (has txid, has height), the same in every chunk
+    for chunk in chunks:
+        if hasattr(chunk, "schema") and hasattr(chunk, "column"):
+            chunk = {name: chunk.column(i)
+                     for i, name in enumerate(chunk.schema.names)}
+        cols = _table_columns(chunk)
+        n = len(cols["tweak_key"])
+        covered = (max(0, min(checkpoint.rows_done - offset, n))
+                   if checkpoint is not None else 0)
+        if covered >= n:
+            offset += n
+            continue
+        if covered:
+            cols = {name: _slice_col(c, covered, n)
+                    for name, c in cols.items()}
+        res = _scan_impl(cols, scan_private_key, spend_public_key,
+                         label_keys, config=config, device=device)
+        have = (res.txid is not None, res.height is not None)
+        if pt_schema is None:
+            pt_schema = have
+        elif pt_schema != have:
+            raise IngestError(
+                "heterogeneous chunk schema: txid/height columns must be "
+                f"present in every chunk or in none (saw {pt_schema} then "
+                f"{have})")
+        idx_parts.append(res.indices + offset + covered)
+        if res.txid is not None:
+            txid_parts.append(np.asarray(res.txid, dtype=object))
+        if res.height is not None:
+            height_parts.append(np.asarray(res.height))
+        tweak_parts.append(res.tweak_key)
+        m = res.metrics
+        if agg is not None and m is not None:
+            for name in _SUMMED:
+                setattr(agg, name, getattr(agg, name) + getattr(m, name))
+            for name in _LAST:
+                setattr(agg, name, getattr(m, name))
+            if m.upload_mode:
+                agg.upload_mode = m.upload_mode
+        offset += n
+        if checkpoint is not None:
+            checkpoint.rows_done = offset
+            checkpoint.matches.extend(idx_parts[-1].tolist())
+            checkpoint.record_rows(idx_parts[-1], res.txid, res.height,
+                                   res.tweak_key)
+    cat = (np.concatenate(idx_parts) if idx_parts
+           else np.zeros(0, np.int64))
+    if agg is not None:
+        agg.matches = len(cat)
+    if resumed:
+        return _merge_resumed(cat, prior_matches, checkpoint, pt_schema,
+                              txid_parts, height_parts, tweak_parts, agg)
+    return ScanResult(
+        indices=cat,
+        txid=np.concatenate(txid_parts) if txid_parts else None,
+        height=np.concatenate(height_parts) if height_parts else None,
+        tweak_key=(np.concatenate(tweak_parts) if tweak_parts
+                   else np.zeros((0, 64), np.uint8)),
+        metrics=agg)
+
+
+def _merge_resumed(cat, prior_matches, checkpoint, pt_schema, txid_parts,
+                   height_parts, tweak_parts, agg) -> ScanResult:
+    """This run's matches and the earlier run's, whose passthrough
+    columns come from the cursor's match_rows; indices only where the
+    cursor has no such rows."""
+    prior = np.asarray(prior_matches, np.int64)
+    all_idx = (np.unique(np.concatenate([cat, prior]))
+               if len(cat) + len(prior) else np.zeros(0, np.int64))
+    if agg is not None:
+        agg.matches = len(all_idx)
+    prior_rows = checkpoint.take_rows(prior_matches)
+    if prior_rows is None:
+        return ScanResult(indices=all_idx, txid=None, height=None,
+                          tweak_key=None, metrics=agg)
+    ptx, phh, ptw = prior_rows
+
+    def presence(vals, what):
+        nn = sum(v is not None for v in vals)
+        if nn == 0:
+            return False
+        if nn == len(vals):
+            return True
+        raise IngestError(
+            f"resumed cursor has mixed {what} presence in match_rows")
+
+    if prior_matches:
+        prior_schema = (presence(ptx, "txid"), presence(phh, "height"))
+        if pt_schema is not None and pt_schema != prior_schema:
+            raise IngestError(
+                "resumed stream schema mismatch: the prior run recorded "
+                f"passthrough columns {prior_schema}, this run saw "
+                f"{pt_schema} (txid, height)")
+        schema = prior_schema
+    else:
+        schema = pt_schema or (False, False)
+
+    rowmap = {int(i): (ptx[k], phh[k], ptw[k])
+              for k, i in enumerate(prior_matches)}
+    fresh_tx = np.concatenate(txid_parts) if txid_parts else None
+    fresh_h = np.concatenate(height_parts) if height_parts else None
+    fresh_tw = (np.concatenate(tweak_parts) if tweak_parts
+                else np.zeros((0, 64), np.uint8))
+    for k, i in enumerate(cat):
+        rowmap[int(i)] = (fresh_tx[k] if fresh_tx is not None else None,
+                          fresh_h[k] if fresh_h is not None else None,
+                          fresh_tw[k])
+    return ScanResult(
+        indices=all_idx,
+        txid=(np.asarray([rowmap[int(i)][0] for i in all_idx], object)
+              if schema[0] else None),
+        height=(np.asarray([rowmap[int(i)][1] for i in all_idx])
+                if schema[1] else None),
+        tweak_key=(np.stack([rowmap[int(i)][2] for i in all_idx])
+                   if len(all_idx) else np.zeros((0, 64), np.uint8)),
+        metrics=agg)
 
 
 def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
@@ -292,7 +490,7 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
                                  pack_seconds=pack_time)
     if metrics is not None:
         metrics.rows_in = n
-        metrics.batch_size = eff_batch
+        metrics.launch_rows = eff_batch
     executor = BatchExecutor(dev, block_rows=cfg.block_rows, upload=upload,
                              ladder=ladder, mesh=cfg.mesh,
                              rebalance=cfg.rebalance)

@@ -748,6 +748,13 @@ class ScanKernel:
 KERNELS = {ladder: ScanKernel(ladder) for ladder in LADDERS}
 
 
+def loaded_libraries() -> int:
+    """The scan-kernel libraries loaded in the process: csrc/scan.cu
+    (the fixed and wnaf ladders) once, and one per static key."""
+    return len({lib._name for kern in KERNELS.values()
+                for lib in list(kern._libs.values())})
+
+
 def scan_flags(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
                spend, labels, comb, blockmask=None, *, block_rows=256,
                wire="x", pack_flags=False, ladder="fixed",

@@ -20,8 +20,17 @@ i+1 packs on the host and uploads while batch i computes. Every H2D and
 every kernel is timed with CUDA events on its own stream; "auto" reads
 the link rate and the batch-0 kernel time from them. Everything is one
 Python loop of streams and events: no background threads, so a failure
-cannot leave the caller waiting on a dead feeder. Any failure of batch i,
-or of the exact pass over its rows, raises ExecutionError(i).
+cannot leave the caller waiting on a dead feeder.
+
+A batch whose launch or result fails runs once more, re-staged from its
+PackedBatch on a spare set of buffers and streams (the pinned slot it
+used may already hold a later batch), and counts in
+metrics.batch_retries; a second failure raises ExecutionError(i). A
+sticky CUDA error (an illegal address) leaves the context unusable, so
+its retry fails too and raises. A failure to pack batch i, or of the
+exact pass over its rows, raises ExecutionError(i) at once. The steps of
+a batch are named spans (runtime.trace.annotate): cudasp.pack,
+cudasp.stage_h2d, cudasp.launch, cudasp.wait and cudasp.exact_pass.
 
 With a mesh (parallel.mesh; the counterpart of the reference's
 shard_map), each batch is split into the mesh's contiguous lane shards:
@@ -52,6 +61,7 @@ from ..io.ingest import PackedBatch, split_outputs_i64
 from ..ops import kernels as K
 from .errors import ExecutionError
 from .metrics import ScanMetrics
+from .trace import annotate
 
 CUTS = tuple(hi for hi in K.HI_ONLY if hi)          # hi32, hi16, hi8
 UPLOADS = ("full", "full64") + CUTS + ("auto",)
@@ -355,18 +365,21 @@ class _Run:
         """One launch (or plain-version call) on one upload mode. Flags
         come packed 32 a word where the lane width allows, else int8."""
         e = self.entries[0]
-        slot, ops, bm, staged, nbytes = e.stage(wire_planes(planes, mode),
-                                                bmask)
+        with annotate("cudasp.stage_h2d"):
+            slot, ops, bm, staged, nbytes = e.stage(
+                wire_planes(planes, mode), bmask)
         ops = _with_dummies(e, ops, planes, mode)
         sp, lab, comb = self.query[e.device]
-        with e.on():
+        with e.on(), annotate("cudasp.launch"):
             flags = K.scan_flags(*ops, self.digits, sp, lab, comb, bm,
                                  **self._kw(mode, M,
                                             planes[0].shape[1] % 32 == 0))
         return [(e, slot, e.collect(slot, [flags]))], staged, nbytes
 
     def result(self, ticket, metrics):
-        res = [e.wait(slot, outs, metrics) for e, slot, outs in ticket[0]]
+        with annotate("cudasp.wait"):
+            res = [e.wait(slot, outs, metrics)
+                   for e, slot, outs in ticket[0]]
         outs = [np.concatenate(parts, axis=1)
                 for parts in zip(*(r[0] for r in res))]
         sources = _join_src(outs[1], outs[2]) if len(outs) == 3 else None
@@ -400,15 +413,17 @@ class _MeshRun(_Run):
             wire += _src_planes(sources, B)
             bmask = None
         ticket, staged, nbytes, ops, bms = [], 0.0, 0, [], []
-        for k, (e, (a, z)) in enumerate(zip(
-                self.entries, lane_ranges(n, B))):
-            slot, o, bm, s, b = e.stage(
-                [p[:, a:z] for p in wire],
-                None if bmask is None else bmask[k * nbl:(k + 1) * nbl])
-            ticket.append((e, slot))
-            staged, nbytes = staged + s, nbytes + b
-            ops.append(_with_dummies(e, o, planes, mode))
-            bms.append(bm)
+        with annotate("cudasp.stage_h2d"):
+            for k, (e, (a, z)) in enumerate(zip(
+                    self.entries, lane_ranges(n, B))):
+                slot, o, bm, s, b = e.stage(
+                    [p[:, a:z] for p in wire],
+                    None if bmask is None
+                    else bmask[k * nbl:(k + 1) * nbl])
+                ticket.append((e, slot))
+                staged, nbytes = staged + s, nbytes + b
+                ops.append(_with_dummies(e, o, planes, mode))
+                bms.append(bm)
         lanes = [list(x) for x in zip(*ops)]
         streams = [e.compute_stream for e in self.entries]
         sp, lab, comb = ({d: q[j] for d, q in self.query.items()}
@@ -424,10 +439,11 @@ class _MeshRun(_Run):
             pack = False
         else:
             extra, pack = [], (B // n) % 32 == 0
-        flags = K.scan_flags_sharded(
-            mesh, *lanes, self.digits, sp, lab, comb,
-            None if bms[0] is None else bms, streams=streams,
-            **self._kw(mode, M, pack))
+        with annotate("cudasp.launch"):
+            flags = K.scan_flags_sharded(
+                mesh, *lanes, self.digits, sp, lab, comb,
+                None if bms[0] is None else bms, streams=streams,
+                **self._kw(mode, M, pack))
         ticket = [(e, slot, e.collect(slot, [f] + [x[k] for x in extra]))
                   for k, ((e, slot), f) in enumerate(zip(ticket, flags))]
         return ticket, staged, nbytes
@@ -506,7 +522,9 @@ class BatchExecutor:
         tags = {}
         results = []          # [flags bool (n,), source rows]
         queued = []           # flagged rows of cut batches (exact pass)
-        inflight = deque()    # (ticket, batch index, batch, mode)
+        # (ticket, batch index, batch, mode, the submit's fault or None)
+        inflight = deque()
+        spare = []            # the retries' run, made at the first one
         used = ["full"]       # the last mode that was not "full"
         density = [0, 0]      # rows on a cut wire, of which flagged
 
@@ -523,9 +541,40 @@ class BatchExecutor:
                 tags[M, want] = cut_tag_for(M, want, warn=auto is None)
             return tags[M, want]
 
+        def submit(run, b, planes, bmask, mode, M):
+            ticket = run.submit(planes, bmask, mode, M,
+                                b.source_rows if self.rebalance else None)
+            if metrics is not None:
+                metrics.upload_seconds += ticket[1]
+                metrics.upload_bytes += ticket[2]
+            return ticket
+
+        def outcome(ticket, i, b, mode, fault):
+            """(ticket, dev.result) of batch i; a failed submit or result
+            runs once more, re-packed from b, on the spare run, which only
+            ever holds that one batch."""
+            if fault is None:
+                try:
+                    return ticket, dev.result(ticket, metrics)
+                except Exception as e:
+                    fault = e
+            if metrics is not None:
+                metrics.batch_retries += 1
+            try:
+                if not spare:
+                    spare.append(self._run_on(digits, static, spend, labels))
+                M = b.outputs_hi.shape[1]
+                planes, bmask = _planes(b, self.block_rows, mode,
+                                        self.pad_to)
+                ticket = submit(spare[0], b, planes, bmask, mode, M)
+                return ticket, spare[0].result(ticket, metrics)
+            except Exception:
+                raise ExecutionError(i, fault) from fault
+
         def finish(entry):
-            ticket, i, b, mode = entry
-            flags, sources, h2d_s, kern_s = dev.result(ticket, metrics)
+            ticket, i, b, mode, fault = entry
+            ticket, (flags, sources, h2d_s, kern_s) = outcome(
+                ticket, i, b, mode, fault)
             if sources is None:
                 sources = b.source_rows
             fl = K.flags_to_bool(flags, len(sources))
@@ -571,6 +620,8 @@ class BatchExecutor:
                 entry = inflight.popleft()
                 try:
                     finish(entry)
+                except ExecutionError:
+                    raise
                 except Exception as e:
                     raise ExecutionError(entry[1], e) from e
 
@@ -590,27 +641,28 @@ class BatchExecutor:
                 if mode != "full":
                     used[0] = mode
                 t0 = time.perf_counter()
-                planes, bmask = _planes(b, self.block_rows, mode,
-                                        self.pad_to)
+                with annotate("cudasp.pack"):
+                    planes, bmask = _planes(b, self.block_rows, mode,
+                                            self.pad_to)
                 if metrics is not None:
                     metrics.pack_seconds += time.perf_counter() - t0
-                ticket = dev.submit(planes, bmask, mode, M,
-                                    b.source_rows if self.rebalance
-                                    else None)
-                if metrics is not None:
-                    metrics.upload_seconds += ticket[1]
-                    metrics.upload_bytes += ticket[2]
                     metrics.batches += 1
                     if self.rebalance:
                         metrics.exchange_bytes += 4 * width * (
                             sum(p.shape[0] for p in planes) + 2)
-                inflight.append((ticket, i, b, mode))
             except Exception as e:
                 raise ExecutionError(i, e) from e
-            drain(1)
+            try:
+                ticket, fault = submit(dev, b, planes, bmask, mode, M), None
+            except Exception as e:
+                ticket, fault = None, e
+            inflight.append((ticket, i, b, mode, fault))
+            # a failed submit retries now, before a later batch launches
+            drain(1 if fault is None else 0)
         drain(0)
         if queued:
-            self._reverify(dev, queued, results, scan_width, metrics)
+            with annotate("cudasp.exact_pass"):
+                self._reverify(dev, queued, results, scan_width, metrics)
         if auto is not None and memo_key is not None:
             memo = BatchExecutor._auto_memo
             memo[memo_key] = (auto.kernel0, auto.want)
@@ -622,6 +674,7 @@ class BatchExecutor:
             metrics.upload_mode = used[0]
             metrics.ladder = self.ladder
             metrics.n_devices = 1 if self.mesh is None else self.mesh.size
+            metrics.warm_variants = K.loaded_libraries()
         return [tuple(r) for r in results]
 
     def _reverify(self, dev, queued, results, width, metrics):

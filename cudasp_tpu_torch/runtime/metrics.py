@@ -1,4 +1,16 @@
-"""Structured scan metrics (counterpart of cudasp_tpu/runtime/metrics.py)."""
+"""Structured scan metrics (counterpart of cudasp_tpu/runtime/metrics.py).
+
+The fields of the reference's line, plus the port's own: the launch
+width, H2D by CUDA events, the exchange, the "auto" model's inputs.
+Two of the reference's fields differ in meaning here:
+
+- total_seconds is the wall time of the scan, from argument checks to the
+  result. The reference adds its pack_seconds to a timer that already
+  runs while its feeder thread packs, so its total counts packing twice;
+  the port packs in its one loop and counts it once.
+- prewarm_failures is always 0: the port builds a kernel library before
+  the first batch of a scan that needs it, on the calling thread, and has
+  no prewarm thread whose failures the reference counts."""
 
 from __future__ import annotations
 
@@ -13,7 +25,8 @@ class ScanMetrics:
     rows_scanned: int = 0          # virtual rows incl. overflow splits
     batches: int = 0
     matches: int = 0
-    batch_size: int = 0
+    batch_size: int = 0            # the configured batch size
+    launch_rows: int = 0           # rows a launch: the effective batch
     n_devices: int = 1
     # the last mode a batch shipped that was not "full" (a cut or
     # "full64"), else "full"; as the reference reports it
@@ -40,6 +53,13 @@ class ScanMetrics:
     # four batches (bytes / event-timed seconds) the model last read
     kernel0_seconds: float = 0.0
     link_bytes_per_second: float = 0.0
+    # always 0 (module docstring); the kernel libraries loaded in the
+    # process at the scan's end
+    prewarm_failures: int = 0
+    warm_variants: int = 0
+    # batches that failed once and were run again (a second failure
+    # raises ExecutionError)
+    batch_retries: int = 0
 
     @property
     def bottleneck(self) -> str:

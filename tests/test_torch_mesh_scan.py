@@ -55,7 +55,7 @@ def test_mesh_scan_equal_to_mesh_less_on_golden_cases(case):
         np.testing.assert_array_equal(res.indices, ref.indices)
         assert tuple(int(h) for h in res.height) == case.expected_heights
         m = res.metrics
-        assert m.n_devices == 4 and m.batch_size == 128
+        assert m.n_devices == 4 and m.launch_rows == 128
         assert m.upload_mode == cfg.get("upload", "full")
         if cfg.get("upload") == "hi8":
             assert m.reverified_rows >= len(case.expected_heights)
