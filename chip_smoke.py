@@ -16,7 +16,18 @@
 # ScanConfig(static_key=True, upload="full64") and ScanConfig(upload="hi8")
 # (the cut, then the exact pass over the rows it flags), each checked
 # exactly and shown to launch its own kernels; then a second static scan
-# with the same key, which must run no nvcc. After the builds it prints
+# with the same key, which must run no nvcc. Then the reference's whole
+# ScanConfig: tuning (the card's resolved runtime.tuning row,
+# block_rows=None against ScanConfig() and the row's value on a golden
+# case, and `python -m cudasp_tpu_torch.tools.autotune --dry-run --quick`
+# in a subprocess, which must exit 0 and write nothing), xla-golden
+# (every golden case through ScanConfig(backend="xla"), the XLA backend's
+# torch pipeline, on the card with fused False and True: == expected ==
+# the same scan on the CPU; an off-curve row that the pipeline does not
+# match and the kernel does) and xla-main-path (the 2,300,000-row table
+# through backend="xla": == planted == the kernel path's rows, no scan
+# kernel launched; tx/s, metrics, peak memory, and one 262,144-row
+# pipeline batch timed against one of 8,192 rows). After the builds it prints
 # ptxas's registers, stack frame and spill bytes and cuobjdump's SASS
 # counts (IMAD-family, IADD3, local loads and stores, calls) of every
 # scan-kernel instantiation and of bench_kernel's field cases, and runs
@@ -1637,6 +1648,199 @@ def retry_phase(table, planted, key, spend, smi):
     return runs[0][1]
 
 
+XLA_NARROW = 8192           # the JAX package's XLA tile, timed beside ours
+
+
+def golden_rows(case):
+    """A golden case's table (with heights) and its matching row indices."""
+    table = {"height": [r.height for r in case.rows], **golden_table(case)}
+    return table, [i for i, r in enumerate(case.rows)
+                   if r.height in case.expected_heights]
+
+
+def off_curve_case0():
+    """gecc_case0 with row 0's y + 2 (same parity, off the curve): the XLA
+    backend computes on the literal (x, y) and does not match it; the
+    kernel reads only y's parity and does."""
+    from cudasp_tpu_torch.oracle import vectors as V
+
+    table, _ = golden_rows(V.CASES[0])
+    blobs = table["tweak_key"].copy()
+    y = int.from_bytes(blobs[0, 32:].tobytes(), "little") + 2
+    blobs[0, 32:] = list(y.to_bytes(32, "little"))
+    table["tweak_key"] = blobs
+    return table
+
+
+def tuning_phase(smi):
+    """The card's resolved tuning row; block_rows=None against the
+    default and the H100 row's explicit value on a golden case; the
+    autotune tool's dry, quick sweep in a subprocess, which writes
+    nothing."""
+    import glob
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.oracle import vectors as V
+    from cudasp_tpu_torch.runtime import tuning
+
+    t0 = time.perf_counter()
+    d = tuning.defaults()
+    case = next(c for c in V.CASES if c.label_blobs)
+    table, want = golden_rows(case)
+    rows = {}
+    for name, cfg in (("block_rows=None", ct.ScanConfig(block_rows=None)),
+                      ("ScanConfig()", ct.ScanConfig()),
+                      ("block_rows=256", ct.ScanConfig(block_rows=256))):
+        res = ct.scan(table, case.scan_key_blob, case.spend_blob,
+                      case.label_blobs, config=cfg)
+        rows[name] = (res.indices.tolist(), res.metrics.launch_rows)
+    if any(r[0] != want for r in rows.values()) or len(set(
+            r[1] for r in rows.values())) != 1:
+        raise AssertionError(f"tuning: rows {rows}, expected {want}")
+    pattern = os.path.join(tuning.TUNING_DIR, "tuning_*.json")
+    before = sorted(glob.glob(pattern))
+    t1 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "cudasp_tpu_torch.tools.autotune",
+         "--dry-run", "--quick"], capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    sweep = time.perf_counter() - t1
+    print(out.stdout + out.stderr, flush=True)
+    if out.returncode != 0 or "best:" not in out.stdout:
+        raise AssertionError(f"autotune --dry-run --quick: exit "
+                             f"{out.returncode}")
+    if sorted(glob.glob(pattern)) != before:
+        raise AssertionError("autotune --dry-run wrote a tuning row")
+    phase("tuning", f"{tuning.device_kind()}: tuning.defaults() = {d} "
+          f"(CUDASP_BLOCK_ROWS {os.environ.get('CUDASP_BLOCK_ROWS')}, "
+          f"CUDASP_TILE {os.environ.get('CUDASP_TILE')}); {case.name} "
+          f"with block_rows=None, ScanConfig() and block_rows=256: rows "
+          f"{want}, {rows['ScanConfig()'][1]} rows a launch; autotune "
+          f"--dry-run --quick {sweep:.1f} s, exit 0, no file written | "
+          f"{smi} [{time.perf_counter() - t0:.1f} s]")
+
+
+def xla_golden_phase(smi):
+    """Every golden case through ScanConfig(backend="xla") on the card,
+    fused False and True, against its expected rows and the same scan on
+    the CPU; the off-curve row: card == CPU == no match (the kernel
+    matches it)."""
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.oracle import vectors as V
+
+    t0 = time.perf_counter()
+    reset_launches()
+    card = []
+    for case in V.CASES:
+        table, want = golden_rows(case)
+        got = {}
+        for fused in (False, True):
+            for dev in ("cuda", "cpu"):
+                if dev == "cpu" and fused:
+                    continue
+                t1 = time.perf_counter()
+                res = ct.scan(table, case.scan_key_blob, case.spend_blob,
+                              case.label_blobs, device=dev,
+                              config=ct.ScanConfig(backend="xla",
+                                                   fused=fused))
+                if dev == "cuda":
+                    card.append(time.perf_counter() - t1)
+                got[dev, fused] = res.indices.tolist()
+        if any(g != want for g in got.values()):
+            raise AssertionError(f"xla-golden {case.name}: {got}, "
+                                 f"expected {want}")
+    case = V.CASES[0]
+    table = off_curve_case0()
+    off = {dev: ct.scan(table, case.scan_key_blob, case.spend_blob,
+                        device=dev, config=ct.ScanConfig(backend="xla")
+                        ).indices.tolist() for dev in ("cuda", "cpu")}
+    kernel_launches = launch_counts()
+    kern = ct.scan(table, case.scan_key_blob, case.spend_blob).indices
+    if off != {"cuda": [], "cpu": []} or kern.tolist() != [0]:
+        raise AssertionError(f"xla-golden off-curve row: xla {off}, "
+                             f"kernel {kern.tolist()}")
+    if kernel_launches != (0, 0, 0):
+        raise AssertionError(f"xla-golden: the XLA backend launched the "
+                             f"scan kernel {kernel_launches}")
+    phase("xla-golden", f"{len(V.CASES)} cases x fused False/True on the "
+          f"card == expected == device='cpu' ({len(card)} card scans, "
+          f"{min(card):.2f}-{max(card):.2f} s each, 256 rows a batch); "
+          f"off-curve row (gecc_case0, y + 2): card {off['cuda']} == cpu "
+          f"{off['cpu']}, the kernel {kern.tolist()}; scan-kernel "
+          f"launches on the XLA scans {kernel_launches} | {smi} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+
+
+def xla_main_path(table, planted, key, spend, kernel_rows, smi):
+    """The 2,300,000-row table through ScanConfig(backend="xla") on the
+    card: the planted rows and the kernel path's, its metrics and peak
+    memory, no scan-kernel launch; then one pipeline batch of 262,144
+    rows against one of 8,192 (the JAX package's XLA tile), by CUDA
+    events on device-resident planes."""
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.io import ingest
+    from cudasp_tpu_torch.ops import field as F
+    from cudasp_tpu_torch.ops import pipeline as PL
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    res = ct.scan(table, key, spend, config=ct.ScanConfig(backend="xla"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not np.array_equal(res.indices, planted) or not np.array_equal(
+            res.indices, kernel_rows):
+        raise AssertionError(
+            f"xla-main-path: {len(res.indices)} matches, expected "
+            f"{len(planted)}; first differences "
+            f"{np.setxor1d(res.indices, planted)[:10].tolist()}")
+    if launches != (0, 0, 0):
+        raise AssertionError(f"xla-main-path launched the scan kernel "
+                             f"{launches}")
+    m = res.metrics
+    sched, sp, lab, _ = ingest.pack_query_keys(key, spend, [])
+    q = PL.query_limbs(dev_tensor(sp), dev_tensor(lab))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    batch = {}
+    for width in (ct.api.TILE_CUDA, XLA_NARROW):
+        rows = PL.from_planes(*pack_rows(table, width, "xy")[0])
+        F.PRODUCTS[0] = F.SQUARES[0] = 0
+        with torch.inference_mode():
+            ev[0].record()
+            flags = PL.scan_batch(*rows, sched.glv, *q, nlabels=0)
+            ev[1].record()
+            torch.cuda.synchronize()
+        got = np.flatnonzero(flags.cpu().numpy())
+        if not np.array_equal(got, planted[planted < width]):
+            raise AssertionError(f"xla batch of {width}: wrong flags")
+        batch[width] = (ev[0].elapsed_time(ev[1]),
+                        F.PRODUCTS[0] / width, F.SQUARES[0] / width)
+        del rows, flags
+    wide, narrow = batch[ct.api.TILE_CUDA], batch[XLA_NARROW]
+    phase("xla-main-path", f"ScanConfig(backend='xla'): {MAIN_ROWS} rows "
+          f"in {secs:.3f} s = {MAIN_ROWS / secs:,.0f} tx/s end to end; "
+          f"{len(res.indices)} matches == planted == the kernel path's; "
+          f"{m.batches} batches of {m.launch_rows} rows, pack "
+          f"{m.pack_seconds:.3f} s, staging {m.upload_seconds:.3f} s, H2D "
+          f"{m.h2d_seconds:.4f} s, device wait "
+          f"{m.device_wait_seconds:.3f} s, executor {m.device_seconds:.3f} "
+          f"s; peak device memory {peak / 2**30:.2f} GiB; scan-kernel "
+          f"launches {launches}; one pipeline batch (events): "
+          f"{ct.api.TILE_CUDA} rows {wide[0]:.1f} ms "
+          f"({ct.api.TILE_CUDA / wide[0] * 1e3:,.0f} rows/s, "
+          f"{wide[1]:.0f} products + {wide[2]:.0f} squares a row), "
+          f"{XLA_NARROW} rows {narrow[0]:.1f} ms "
+          f"({XLA_NARROW / narrow[0] * 1e3:,.0f} rows/s) | {smi} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+
+
 def main():
     import torch
 
@@ -1863,6 +2067,7 @@ def main():
                 (v[0][:4096 * OUTPUTS_PER_ROW], v[1][:4097]))
             for k, v in table.items()}
     main_launches = {}
+    main_rows = {}
     for name, (fields, ladder, wire) in MAIN_PATHS.items():
         ct.scan(head, key, spend, config=ct.ScanConfig(**fields))  # warm-up
         for kern in K.KERNELS.values():
@@ -1889,6 +2094,7 @@ def main():
             raise AssertionError(f"main path {name}: launches {counts}, "
                                  f"{cut} on a cut wire")
         main_launches[name] = cut if name == "hi" else exact
+        main_rows[name] = res.indices
         m = res.metrics
         kms = timing[ladder, wire]["ms"]
         extra = ""
@@ -1922,6 +2128,11 @@ def main():
         raise AssertionError("second static scan: wrong matches")
     phase("static-cache", "warm-up, main path and a second static scan "
           "with the same key: 0 nvcc runs after the build")
+
+    # --- the reference's whole ScanConfig: tuning, the XLA backend ---------
+    tuning_phase(smi)
+    xla_golden_phase(smi)
+    xla_main_path(table, planted, key, spend, main_rows["fixed"], smi)
 
     # --- the user surface: the stream (this slice's main path: killed and
     # resumed from its cursor), SQL, the CLI, tracing, batch retry -------

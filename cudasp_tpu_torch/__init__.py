@@ -4,10 +4,13 @@ The port of the JAX package `cudasp_tpu` to one NVIDIA H100: the same
 `scan` table function, with the fused TPU scan kernel rewritten by hand in
 CUDA C++ for sm_90a (csrc/); `scan_stream` with a resumable ScanCursor;
 the CLI (`python -m cudasp_tpu_torch scan|sql`) and the SQL front end
-(`cudasp_tpu_torch.sql`, the `cudasp_scan` table function). Entry points
-run on the GPU unless the caller passes device="cpu", which runs the
-kernel's plain-torch version. Imports torch and numpy, never jax and
-nothing of cudasp_tpu.
+(`cudasp_tpu_torch.sql`, the `cudasp_scan` table function);
+ScanConfig(backend="xla"), the JAX package's XLA-graph backend as torch
+tensor ops (ops/pipeline.py); per-device tuning (runtime/tuning.py,
+tools/autotune.py). Entry points run on the GPU unless the caller passes
+device="cpu", which runs the kernel's plain-torch version (or the XLA
+backend's ops). Imports torch and numpy, never jax and nothing of
+cudasp_tpu.
 """
 
 import numpy as np

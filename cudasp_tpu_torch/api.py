@@ -9,7 +9,9 @@ runtime.checkpoint.ScanCursor, resumes where a dead scan stopped.
 Both run on the GPU unless the caller passes device="cpu"; without a
 CUDA device they raise instead of falling back. On the GPU every batch goes
 through the hand-written scan kernel; on the CPU through its plain-torch
-version. With ScanConfig(mesh=parallel.mesh.make_mesh()) each batch is
+version. ScanConfig(backend="xla") runs the XLA-graph backend's
+counterpart instead (ops/pipeline.py, torch tensor ops), on the same
+device. With ScanConfig(mesh=parallel.mesh.make_mesh()) each batch is
 split over the mesh's entries, one launch each (and, with rebalance=True,
 through the row exchange first)."""
 
@@ -25,24 +27,45 @@ import torch
 from .io import ingest
 from .runtime.errors import BindError, IngestError
 from .ops.kernels import LADDERS
-from .runtime.executor import UPLOADS, BatchExecutor
+from .runtime import tuning
+from .runtime.executor import BACKENDS, UPLOADS, BatchExecutor
 from .runtime.metrics import ScanMetrics, Timer
 from .runtime.trace import emit_metrics, trace_scan
 
 DEFAULT_BATCH_SIZE = 300_000       # the reference's default batch size
 MAX_BATCH_SIZE = 10_000_000        # the reference's cap
-TILE_CUDA = 262_144                # rows per kernel launch on the GPU
-TILE_CPU = 1024                    # rows per plain-version call on the CPU
+TILE_CUDA = tuning.H100.tile       # rows a launch on the H100 (its row)
 MAX_OUTPUTS_CAP = 30               # bits 30/31 of the validity mask are taken
 
 
 @dataclass
 class ScanConfig:
+    """Every field of the JAX package's ScanConfig, with its default.
+
+    backend: "auto" and "pallas" run the hand-written scan kernel (its
+    plain version under device="cpu"); "xla" runs ops/pipeline.py, the
+    XLA-graph backend's counterpart in torch tensor ops, on the literal
+    (x, y) of each tweak point with complete point arithmetic, on the card
+    unless device="cpu". The reference's "auto" picks "xla" on the CPU;
+    the port's never does, since the CPU is its test device for the
+    kernel's plain version, not a deployment. On "xla", upload, ladder,
+    static_key and rebalance do nothing, as on the reference's, and fused
+    gives the same flags either way (ops/pipeline.py)."""
     batch_size: int = DEFAULT_BATCH_SIZE
     max_outputs: int = 8            # padded outputs width (long lists split)
     collect_metrics: bool = True
-    # rows per block-skip tile of the kernel's blockmask
-    block_rows: int = 256
+    # rows per block-skip tile of the kernel's blockmask; None: the
+    # device's row in runtime.tuning (CUDASP_BLOCK_ROWS over it)
+    block_rows: Optional[int] = None
+    # rows a launch at most (the executor's batch width); None: the
+    # device's row in runtime.tuning (CUDASP_TILE over it). The reference's
+    # XLA backend caps its tile at 8,192 because XLA's compile time grows
+    # with the batch; the port compiles nothing, and at 8,192 rows the
+    # card would run each of the pipeline's plain ops ~32 times more often
+    # for the same rows, so every backend takes the device's tile.
+    tile: Optional[int] = None
+    backend: str = "auto"           # "auto" | "pallas" | "xla" (above)
+    fused: bool = False             # the reference's one-program pipeline
     # Batch upload (per row at 3 outputs): "full64" (92 B: the 64-byte
     # point, the kernel skips the square root), "full" (60 B: 32-byte x +
     # parity bit, the kernel recovers y), "hi32" (48 B), "hi16" (40 B) or
@@ -178,6 +201,15 @@ def resolve_ladder(cfg: ScanConfig) -> str:
         raise BindError(f"ladder must be 'auto' or one of {LADDERS}, got "
                         f"{ladder!r}")
     return ladder
+
+
+def resolve_backend(cfg: ScanConfig) -> str:
+    """"xla" for the XLA backend's counterpart, else "pallas" (the
+    kernel); an unknown backend is a BindError."""
+    if cfg.backend not in BACKENDS + ("auto",):
+        raise BindError(f"backend must be 'auto', 'pallas' or 'xla', got "
+                        f"{cfg.backend!r}")
+    return "xla" if cfg.backend == "xla" else "pallas"
 
 
 def resolve_upload(cfg: ScanConfig) -> str:
@@ -426,7 +458,10 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
             raise BindError(f"label_keys[{i}] must be exactly 64 bytes")
     upload = resolve_upload(cfg)
     ladder = resolve_ladder(cfg)
+    backend = resolve_backend(cfg)
     dev = _resolve_device(device, cfg.mesh)
+    block_rows = cfg.block_rows or tuning.block_rows_default(dev)
+    tile = cfg.tile or tuning.tile_default(dev)
 
     metrics = (ScanMetrics(batch_size=cfg.batch_size)
                if cfg.collect_metrics else None)
@@ -473,9 +508,8 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
             p *= 2
         return p
 
-    tile = TILE_CUDA if dev.type == "cuda" else TILE_CPU
     n_scan = tweaks_scan.shape[0]
-    eff_batch = max(cfg.block_rows,
+    eff_batch = max(block_rows,
                     min(pow2_at_least(cfg.batch_size),
                         pow2_at_least(max(n_scan, 1)), tile))
     # adaptive outputs width: never wider than the data needs, at most 30;
@@ -491,9 +525,10 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
     if metrics is not None:
         metrics.rows_in = n
         metrics.launch_rows = eff_batch
-    executor = BatchExecutor(dev, block_rows=cfg.block_rows, upload=upload,
+    executor = BatchExecutor(dev, block_rows=block_rows, upload=upload,
                              ladder=ladder, mesh=cfg.mesh,
-                             rebalance=cfg.rebalance)
+                             rebalance=cfg.rebalance, backend=backend,
+                             fused=cfg.fused)
     results = executor.run(batches, sched, spend, labels, metrics=metrics)
 
     matched: List[np.ndarray] = []

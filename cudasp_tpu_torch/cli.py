@@ -5,7 +5,8 @@ front end.
     python -m cudasp_tpu_torch scan --input txs.parquet \\
         --scan-key <64-hex LE scalar> --spend-key <128-hex LE point> \\
         [--label <128-hex LE point>]... [--batch-size N] \\
-        [--device cuda|cpu] [--stream CHUNK_ROWS] [--out matches.parquet]
+        [--device cuda|cpu] [--backend auto|pallas|xla] \\
+        [--stream CHUNK_ROWS] [--out matches.parquet]
     python -m cudasp_tpu_torch sql [script.sql | suite.test] [-e STMT]...
 
 The input table has the columns txid (binary), height (int), tweak_key
@@ -14,7 +15,8 @@ Arrow IPC / Feather or JSONL (by extension; pyarrow is imported only for
 the first two). Matches go to stdout as JSONL, or to a Parquet / Feather
 file. Scans run on the card (--device cuda, the default: the
 hand-written kernel) and raise without one; --device cpu runs the
-kernel's plain version.
+kernel's plain version. --backend xla runs the XLA-graph backend's
+counterpart (ops/pipeline.py) on the same device instead.
 """
 
 from __future__ import annotations
@@ -139,16 +141,11 @@ def _sql(args) -> int:
 def _scan(args) -> int:
     from .api import ScanConfig, scan, scan_stream
 
-    if args.backend == "xla":
-        raise SystemExit("--backend xla: the XLA-graph backend is not part "
-                         "of cudasp_tpu_torch; scans run the hand-written "
-                         "kernel (--device cuda) or its plain version "
-                         "(--device cpu)")
     scan_key = _read_key(args.scan_key, 32, "--scan-key")
     spend_key = _read_key(args.spend_key, 64, "--spend-key")
     labels = [_read_key(s, 64, "--label") for s in args.label]
-    cfg = ScanConfig(upload=args.upload, ladder=args.ladder,
-                     static_key=args.static_key)
+    cfg = ScanConfig(backend=args.backend, upload=args.upload,
+                     ladder=args.ladder, static_key=args.static_key)
     if args.batch_size is not None:
         cfg.batch_size = args.batch_size
     if args.block_rows is not None:
@@ -199,8 +196,10 @@ def main(argv=None) -> int:
                          "without one); cpu: its plain version")
     sp.add_argument("--backend", default="auto",
                     choices=["auto", "pallas", "xla"],
-                    help="the JAX package's choice: auto and pallas run "
-                         "the hand-written kernel; xla is not ported")
+                    help="auto and pallas run the hand-written kernel "
+                         "(its plain version on --device cpu); xla runs the "
+                         "XLA-graph backend's counterpart, torch tensor ops "
+                         "on the literal (x, y), on the same device")
     sp.add_argument("--upload", default="auto",
                     choices=["auto", "full64", "full", "hi32", "hi16",
                              "hi8"],
@@ -215,7 +214,8 @@ def main(argv=None) -> int:
                     help="build the scan key's schedule into a kernel of "
                          "its own (one nvcc build per key, cached on disk)")
     sp.add_argument("--block-rows", type=int, default=None,
-                    help="rows per block-skip tile (default 256)")
+                    help="rows per block-skip tile (default: the "
+                         "device's row in runtime.tuning)")
     sp.add_argument("--out", default="-",
                     help="output file (.parquet/.feather) or '-' for JSONL")
     sp.add_argument("--metrics", action="store_true",

@@ -2,7 +2,9 @@
 batches (counterpart of cudasp_tpu/io/ingest.py:112-273, kernel layout
 only). Ragged per-row output lists become padded (B, M) planes; rows with
 more than M outputs split into virtual rows that share a source index.
-Everything is vectorised numpy."""
+Everything is vectorised numpy. The XLA backend (ops/pipeline.py) reads
+the same batches, through the kernel's "xy" wire planes (the literal
+64-byte point): it needs no layout of its own."""
 
 from __future__ import annotations
 
@@ -146,10 +148,11 @@ def iter_packed(tweak_blobs: np.ndarray, outputs_flat: np.ndarray,
 @dataclass(frozen=True)
 class ScanSchedule:
     """The scan key's ladder schedules (counterpart of the JAX package's
-    ScanSchedule, kernel ladders only)."""
+    ScanSchedule)."""
     odd: np.ndarray          # (2, 34) int32, the "fixed" ladder
     wnaf: np.ndarray         # (2, 54) int32, the "wnaf" ladder
     wnaf_static: tuple       # (nd, code) pairs, the per-key "static" build
+    glv: tuple               # scalar.glv_windows: the XLA backend's ladder
 
     def operands(self, ladder: str):
         """(digits, static_sched) as scan_flags takes them for `ladder`."""
@@ -165,7 +168,7 @@ def pack_query_keys(scan_key_blob: bytes, spend_blob: bytes,
     labels (L, 2, 8) uint32, L)."""
     k = blob32_to_scalar(bytes(scan_key_blob))
     sched = ScanSchedule(S.glv_odd_sched(k), S.glv_wnaf_steps(k),
-                         S.glv_wnaf_static(k))
+                         S.glv_wnaf_static(k), S.glv_windows(k))
     spend = np.stack([F.int_to_words(c)
                       for c in blob64_to_point(bytes(spend_blob))])
     labels = [blob64_to_point(bytes(lb)) for lb in label_blobs]

@@ -112,7 +112,7 @@ def fe_to_words(a: torch.Tensor) -> torch.Tensor:
 
 def const(v: int, like: torch.Tensor) -> torch.Tensor:
     """A field constant as (16,) int64 on `like`'s device (broadcasts)."""
-    return torch.as_tensor(int_to_limbs(v % P_INT), device=like.device)
+    return _dev(int_to_limbs(v % P_INT), like)
 
 
 # ---------------------------------------------------------------------------
@@ -141,10 +141,22 @@ def _subtrahend(mult: int, slack: int) -> np.ndarray:
 
 
 _D = _subtrahend(8, 2)                             # limbs in [2^17, 2^20)
+_P = int_to_limbs(P_INT)
+
+
+# constants already on a card, by (bytes, device): a host-to-device copy
+# from pageable memory would wait for the card's queue at every op
+_ON_DEVICE: dict = {}
 
 
 def _dev(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(arr, device=like.device)
+    if like.device.type == "cpu":
+        return torch.from_numpy(arr)
+    key = (arr.tobytes(), like.device)
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        t = _ON_DEVICE[key] = torch.as_tensor(arr, device=like.device)
+    return t
 
 
 def _carry(x: torch.Tensor) -> torch.Tensor:
@@ -231,7 +243,7 @@ def canonical(a):
     x, t = _ripple(x + t * _dev(_FOLD, x))
     x, t = _ripple(x + t * _dev(_FOLD, x))      # t == 0 from here: < 2^256
     # subtract p once when x >= p (x < 2^256 < 2p)
-    d = x - _dev(int_to_limbs(P_INT), x)
+    d = x - _dev(_P, x)
     cols = list(d.unbind(-1))
     borrow = torch.zeros_like(cols[0])
     for i in range(NL):
@@ -314,3 +326,24 @@ def inv_many(zs):
         run = mul(run, safe[i])
     out[0] = run
     return [select(m, torch.zeros_like(o), o) for m, o in zip(nz, out)]
+
+
+# ---------------------------------------------------------------------------
+# Big-endian views (counterparts of limbs_to_words_be / words_be_to_bytes,
+# cudasp_tpu/ops/field.py:569-595). inv_many is the counterpart of
+# inv_chain (:545): one exponentiation, zero inputs give zero inverses.
+# ---------------------------------------------------------------------------
+
+
+def limbs_to_words_be(a):
+    """Canonical (..., 16) -> (..., 8) int64 big-endian words (word 0 =
+    bits 224..255). The input must be canonical."""
+    return fe_to_words(a).flip(-1)
+
+
+def words_be_to_bytes(words):
+    """(..., 8) big-endian words -> (..., 32) int64 bytes, most
+    significant first."""
+    shifts = torch.tensor([24, 16, 8, 0], device=words.device)
+    return ((words.unsqueeze(-1) >> shifts) & 0xFF).reshape(
+        words.shape[:-1] + (32,))

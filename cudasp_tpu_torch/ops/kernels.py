@@ -275,7 +275,7 @@ def stage_serialize_hash(ex, ey, ez):
     zi2 = F.sqr(zi)
     xc = F.canonical(F.mul(ex, zi2))
     par = F.parity(F.mul(ey, F.mul(zi, zi2)))
-    return H.tagged_hash(F.fe_to_words(xc).flip(-1), par)
+    return H.tagged_hash(F.limbs_to_words_be(xc), par)
 
 
 def stage_output_final(hw, spend, comb):

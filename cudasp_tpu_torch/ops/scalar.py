@@ -12,13 +12,22 @@ counterparts of cudasp_tpu/ops/scalar.py:88-295 and :350-383.
   * comb_table_np: t x G for per-row hash scalars t as 32 table reads, one
     per byte of t: entry [i, b] = b * 2^(8*(31-i)) * G (entry 0 = infinity,
     stored as (0, 0)).
+
+And the XLA-graph pipeline's scalar multiplications in plain torch
+(counterparts of cudasp_tpu/ops/scalar.py:61-85, :297-354 and :397-426),
+on the complete point arithmetic of ops/curve.py: glv_windows (the key's
+two 4-bit GLV schedules, zero digits included), ecdh_shared_scalar_glv
+(from infinity, over per-row tables [0..15]P) and fixed_base_mul (the
+comb table read by a gather, a complete add per byte).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..oracle import ec as O
+from . import curve as C
 from . import field as F
 
 # secp256k1 GLV endomorphism: lambda*(x, y) = (beta*x, y)
@@ -31,6 +40,7 @@ _G2B = _G1A
 
 ODD_WINDOWS = 32          # 128 signed bits / 4 per window
 COMB_WINDOWS = 32         # one window per byte of t
+GLV_WINDOWS = 32          # 128 bits / 4 per window, the pipeline's ladder
 
 
 def glv_split(k: int):
@@ -185,3 +195,76 @@ def comb_table_np() -> np.ndarray:
                 out[i, b, 1] = F.int_to_words(acc[1])
         _comb_cache.append(out)
     return _comb_cache[0]
+
+
+# ---------------------------------------------------------------------------
+# The XLA-graph pipeline's scalar multiplications (plain torch)
+# ---------------------------------------------------------------------------
+
+
+def glv_windows(k: int):
+    """The pipeline's GLV schedule of the scan key: (w1, neg1, w2, neg2),
+    w1 and w2 (32,) int32 4-bit digits of |k1| and |k2|, most significant
+    first, zero digits included; neg1 and neg2 the halves' signs."""
+    a1, n1, a2, n2 = glv_split(k)
+
+    def digits(v):
+        return np.array([(v >> (4 * (GLV_WINDOWS - 1 - i))) & 0xF
+                         for i in range(GLV_WINDOWS)], dtype=np.int32)
+    return digits(a1), np.int32(n1), digits(a2), np.int32(n2)
+
+
+def window_table(base: C.AffinePoint) -> list:
+    """Per-row [0..15] x P as 16 JacPoints: entry 0 is infinity, 2P a
+    doubling, 3P..15P a chain of incomplete adds (kP + P cannot
+    degenerate for 2 <= k <= 14 when P has prime order; an off-curve P
+    gives defined values that cannot match)."""
+    t1 = C.to_jacobian(base)
+    tbl = [C.infinity_like(base.x), t1, C.point_dbl(t1)]
+    for _ in range(13):                 # the reference's madd_fast
+        prev = tbl[-1]
+        x, y, z = C.madd(prev.x, prev.y, prev.z, base.x, base.y)
+        tbl.append(C.JacPoint(x, y, z, prev.inf | base.inf))
+    return tbl
+
+
+def ecdh_shared_scalar_glv(w1, neg1, w2, neg2,
+                           base: C.AffinePoint) -> C.JacPoint:
+    """k x P for a batch of points P sharing one scalar k, given as
+    glv_windows(k): 32 steps of 4 doublings and two complete adds of table
+    picks (P's table, and lambda P's: (beta x, y)), from infinity."""
+    y_neg = F.neg(base.y)
+    base1 = C.AffinePoint(base.x, y_neg if int(neg1) else base.y, base.inf)
+    base2 = C.AffinePoint(F.mul(F.const(GLV_BETA, base.x), base.x),
+                          y_neg if int(neg2) else base.y, base.inf)
+    t1 = window_table(base1)
+    t2 = window_table(base2)
+    acc = C.infinity_like(base.x)
+    for d1, d2 in zip(np.asarray(w1), np.asarray(w2)):
+        for _ in range(4):
+            acc = C.point_dbl(acc)
+        acc = C.point_add(acc, t1[int(d1)])
+        acc = C.point_add(acc, t2[int(d2)])
+    return acc
+
+
+def comb_limbs(device) -> torch.Tensor:
+    """comb_table_np as (32, 256, 2, 16) int64 plain limbs on `device`."""
+    return F.words_to_fe(torch.from_numpy(
+        comb_table_np().view(np.int32)).to(device))
+
+
+def fixed_base_mul(scalar_bytes) -> C.JacPoint:
+    """scalar_bytes: (..., 32) big-endian bytes of per-row scalars t (no
+    mod-n step). t x G as 32 gathers from the comb table, one per byte,
+    each followed by a complete mixed add; byte 0 reads infinity."""
+    comb = comb_limbs(scalar_bytes.device)
+    acc = C.infinity_like(torch.zeros(scalar_bytes.shape[:-1] + (F.NL,),
+                                      dtype=torch.int64,
+                                      device=scalar_bytes.device))
+    for i in range(COMB_WINDOWS):
+        b = scalar_bytes[..., i]
+        q = comb[i][b]                                  # (..., 2, 16)
+        acc = C.point_madd(acc, C.AffinePoint(q[..., 0, :], q[..., 1, :],
+                                              b == 0))
+    return acc

@@ -104,6 +104,32 @@ def _take(col, idx):
     return [col[int(i)] for i in idx]
 
 
+def _partition_keys(col) -> np.ndarray:
+    """A partition column -> partition_rows' keys: an (n, k) uint8 array as
+    it is; integers (a numpy integer array, or ints with NULL as 0) as
+    (n,) uint64, two's complement for negatives; anything else as bytes,
+    the first 32 of each (NULL as empty). The JAX package takes bytes(v)
+    of an integer too, v zero bytes, which puts every id >= 32 in one
+    part; the port does not."""
+    if isinstance(col, np.ndarray):
+        if col.dtype == np.uint8 and col.ndim == 2:
+            return col
+        if col.dtype.kind in "iu":
+            return col.astype(np.uint64)
+    if hasattr(col, "to_pylist"):
+        col = col.to_pylist()
+    if all(v is None or (isinstance(v, (int, np.integer))
+                         and not isinstance(v, bool)) for v in col) \
+            and any(v is not None for v in col):
+        return np.array([0 if v is None else int(v) % 2**64 for v in col],
+                        np.uint64)
+    rows = [(bytes(b) if b is not None else b"")[:32] for b in col]
+    keys = np.zeros((len(rows), 32), np.uint8)
+    for i, b in enumerate(rows):
+        keys[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return keys
+
+
 def multihost_scan(table, scan_private_key: bytes, spend_public_key: bytes,
                    label_keys: Sequence[bytes] = (), *,
                    partition_key: str = "txid", config=None,
@@ -121,18 +147,8 @@ def multihost_scan(table, scan_private_key: bytes, spend_public_key: bytes,
     host, n_hosts = host_info()
     cols = _table_columns(table)
     if partition_key in cols:
-        col = cols[partition_key]
-        if isinstance(col, np.ndarray) and col.dtype == np.uint8 \
-                and col.ndim == 2:
-            keys = col
-        else:
-            if hasattr(col, "to_pylist"):
-                col = col.to_pylist()
-            rows = [(bytes(b) if b is not None else b"")[:32] for b in col]
-            keys = np.zeros((len(rows), 32), np.uint8)
-            for i, b in enumerate(rows):
-                keys[i, :len(b)] = np.frombuffer(b, np.uint8)
-        mine = partition.local_shard_indices(keys, n_hosts, host)
+        mine = partition.local_shard_indices(
+            _partition_keys(cols[partition_key]), n_hosts, host)
     else:
         n = len(cols["tweak_key"])
         mine = np.arange(host, n, n_hosts, dtype=np.int64)

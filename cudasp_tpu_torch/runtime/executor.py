@@ -43,7 +43,19 @@ batch's bytes over the longest H2D. With rebalance=True, every batch goes
 through the row exchange (parallel.exchange) first, on the "full" wire,
 with its source rows as two more planes that come back with the flags.
 
-On the CPU the same loop calls the kernel's plain version."""
+On the CPU the same loop calls the kernel's plain version.
+
+backend="xla" (the counterpart of the reference's _run_xla,
+cudasp_tpu/runtime/executor.py:230-283) runs the same loop over another
+run, _XlaRun: every batch ships the "full64" wire (the literal 64-byte
+point), staged and uploaded as above, and ops/pipeline.py computes its
+flags in torch tensor ops on the compute stream; on a mesh each entry runs
+the pipeline over its own lane shard on its own device, and the flags come
+back in row order. At most two batches are in flight, a failed batch runs
+once more and then raises ExecutionError(i), and the metrics count as on
+the kernel's path. As on the reference's XLA backend, upload, ladder and
+rebalance do nothing there: no cut, no exact pass, no "auto", no
+exchange."""
 
 from __future__ import annotations
 
@@ -59,12 +71,14 @@ import torch
 
 from ..io.ingest import PackedBatch, split_outputs_i64
 from ..ops import kernels as K
+from ..ops import pipeline as PL
 from .errors import ExecutionError
 from .metrics import ScanMetrics
 from .trace import annotate
 
 CUTS = tuple(hi for hi in K.HI_ONLY if hi)          # hi32, hi16, hi8
 UPLOADS = ("full", "full64") + CUTS + ("auto",)
+BACKENDS = ("pallas", "xla")      # the scan kernel, or ops/pipeline.py
 # The kernel's time on the xy wire (full64: no square root) over its time
 # on the x wire (full), per 262,144-row launch, measured on an NVIDIA H100
 # 80GB HBM3 at a 700 W power limit by chip_smoke.py (PERF.md section 5):
@@ -449,13 +463,42 @@ class _MeshRun(_Run):
         return ticket, staged, nbytes
 
 
+class _XlaRun(_Run):
+    """backend="xla": each batch's "full64" planes staged and uploaded per
+    mesh entry (one entry off a mesh), and ops/pipeline.py over each
+    entry's lane shard on that entry's compute stream; (1, B) int8
+    flags."""
+
+    def submit(self, planes, bmask, mode, M, sources=None):
+        from ..parallel.mesh import lane_ranges
+
+        fn = PL.scan_batch_fused if self.ex.fused else PL.scan_batch
+        ticket, staged, nbytes = [], 0.0, 0
+        for e, (a, z) in zip(self.entries, lane_ranges(
+                len(self.entries), planes[0].shape[1])):
+            with annotate("cudasp.stage_h2d"):
+                slot, ops, _, s, b = e.stage([p[:, a:z] for p in planes],
+                                             None)
+            staged, nbytes = staged + s, nbytes + b
+            sx, sy, lx, ly = self.query[e.device]
+            with e.on(), annotate("cudasp.launch"), \
+                    torch.inference_mode():
+                hit = fn(*PL.from_planes(*ops), self.digits, sx, sy, lx,
+                         ly, nlabels=lx.shape[0])
+                flags = hit.to(torch.int8)[None]
+            ticket.append((e, slot, e.collect(slot, [flags])))
+        return ticket, staged, nbytes
+
+
 class BatchExecutor:
     """Runs packed batches on one device ("cuda", "cuda:N" or "cpu"), or on
     a mesh (parallel.mesh.Mesh: each entry over its lane shard), through
     one ladder of the scan kernel ("fixed", "wnaf" or "static"), on one
-    upload mode of UPLOADS. rebalance (mesh only) sends every batch
-    through the row exchange first, on the "full" wire, as the reference
-    does."""
+    upload mode of UPLOADS; or, with backend="xla", through ops/pipeline.py
+    on the "full64" wire (module docstring; fused picks
+    scan_batch_fused). rebalance (mesh only, kernel only) sends every
+    batch through the row exchange first, on the "full" wire, as the
+    reference does."""
 
     # process-wide: (ladder, width, M[, mesh]) -> (kernel0 seconds,
     # decision) of "auto", so a later scan of the same shape starts from
@@ -463,7 +506,8 @@ class BatchExecutor:
     _auto_memo: "OrderedDict" = OrderedDict()
 
     def __init__(self, device, block_rows: int = 256, upload: str = "full",
-                 ladder: str = "fixed", mesh=None, rebalance: bool = False):
+                 ladder: str = "fixed", mesh=None, rebalance: bool = False,
+                 backend: str = "pallas", fused: bool = False):
         self.mesh = mesh
         self.device = torch.device(device if mesh is None
                                    else mesh.devices[0])
@@ -475,21 +519,31 @@ class BatchExecutor:
         if upload not in UPLOADS:
             raise ValueError(f"upload must be one of {UPLOADS}, got "
                              f"{upload!r}")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{backend!r}")
         self.block_rows = block_rows
-        self.upload = upload
+        self.fused = fused
+        self.xla = backend == "xla"
+        self.upload = "full64" if self.xla else upload
         self.ladder = ladder
-        self.rebalance = bool(rebalance and mesh is not None)
+        self.rebalance = bool(rebalance and mesh is not None
+                              and not self.xla)
         # sharded batches split their lanes evenly
         self.pad_to = block_rows * (1 if mesh is None else mesh.size)
 
     def _query(self, spend, labels):
-        """{device: (spend, labels, comb)} for each device the scan uses."""
+        """{device: (spend, labels, comb)} for each device the scan uses;
+        on backend "xla", {device: pipeline.query_limbs(spend, labels)}."""
         devs = (self.mesh.distinct if self.mesh is not None
                 else (self.device,))
 
         def t(a, d):
             return torch.from_numpy(
                 np.ascontiguousarray(a).view(np.int32)).to(d)
+        if self.xla:
+            return {d: PL.query_limbs(t(spend, d), t(labels, d))
+                    for d in devs}
         return {d: (t(spend, d), t(labels, d), K.comb_table(d))
                 for d in devs}
 
@@ -497,9 +551,10 @@ class BatchExecutor:
         devs = (self.mesh.devices if self.mesh is not None
                 else (self.device,))
         entry = _Cuda if self.device.type == "cuda" else _Cpu
-        return (_Run if self.mesh is None else _MeshRun)(
-            self, [entry(d) for d in devs], digits, static,
-            self._query(spend, labels))
+        run = (_XlaRun if self.xla else
+               _Run if self.mesh is None else _MeshRun)
+        return run(self, [entry(d) for d in devs], digits, static,
+                   self._query(spend, labels))
 
     def run(self, batches, sched, spend, labels,
             metrics: Optional[ScanMetrics] = None) -> List[tuple]:
@@ -508,9 +563,10 @@ class BatchExecutor:
         uint32 numpy. Returns per-batch (flags bool (B,), source_rows
         int64 (B,))."""
         t_run = time.perf_counter()
-        digits, static = sched.operands(self.ladder)
+        digits, static = ((sched.glv, None) if self.xla
+                          else sched.operands(self.ladder))
         cuda = self.device.type == "cuda"
-        if cuda:
+        if cuda and not self.xla:
             # the ladder's kernel is built (a per-key nvcc run for
             # "static") before the first batch is packed: a failed build
             # raises here, and nothing falls back to another ladder
@@ -672,7 +728,7 @@ class BatchExecutor:
         if metrics is not None:
             metrics.device_seconds += time.perf_counter() - t_run
             metrics.upload_mode = used[0]
-            metrics.ladder = self.ladder
+            metrics.ladder = "" if self.xla else self.ladder
             metrics.n_devices = 1 if self.mesh is None else self.mesh.size
             metrics.warm_variants = K.loaded_libraries()
         return [tuple(r) for r in results]

@@ -3,7 +3,7 @@ JAX package's (cudasp_tpu.cli) on the same files of golden rows: the same
 JSONL on stdout from .jsonl and .parquet inputs, with --stream on
 parquet, keys given as hex or @file, and the sql subcommand on -e
 statements. Without --device the CLI runs on the card, and without one it
-raises."""
+raises, on every --backend; --backend xla scans with --device cpu."""
 
 import json
 
@@ -169,7 +169,10 @@ def test_sql_subcommand_same_as_jax(capsys):
         list(case.expected_heights)
 
 
-def test_cli_runs_on_the_card_unless_told_cpu(tmp_path, monkeypatch):
+def test_cli_runs_on_the_card_unless_told_cpu(tmp_path, monkeypatch,
+                                             capsys):
+    """Every backend runs on the card unless --device cpu: --backend xla
+    raises like the others without one, and scans with --device cpu."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     case = CASES["gecc_case0"]
     path = tmp_path / "t.jsonl"
@@ -178,5 +181,9 @@ def test_cli_runs_on_the_card_unless_told_cpu(tmp_path, monkeypatch):
         cli.main(_args(case, path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(_sql_args(case))
-    with pytest.raises(SystemExit, match="xla"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(_args(case, path, "--backend", "xla"))
+    ours, _ = _run(cli.main, _args(case, path, "--backend", "xla",
+                                   "--device", "cpu", "--block-rows", "8"),
+                   capsys)
+    assert tuple(r["height"] for r in ours) == case.expected_heights

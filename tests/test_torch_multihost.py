@@ -3,8 +3,10 @@ CPU: single-process (the merge is the identity and multihost_scan equals
 scan, as the JAX package's tests/test_distributed.py holds it), and two
 real processes on torch.distributed's gloo backend over a localhost
 rendezvous, each scanning its hash part of a 16-row table and merging the
-matches (the shape of tests/test_multiprocess.py)."""
+matches (the shape of tests/test_multiprocess.py), with 32-byte txids and
+with integer txids, which the port partitions by value."""
 
+import json
 import os
 import socket
 import subprocess
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import cudasp_tpu
 from cudasp_tpu.oracle import vectors as JV
 from cudasp_tpu.parallel import partition as JP
 
@@ -136,14 +139,15 @@ torch.distributed.destroy_process_group()
 """
 
 
-def test_two_process_gloo_multihost_scan():
+def _two_processes(worker):
+    """Run `worker` as processes 0 and 1 of a gloo group; their stdout."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = str(s.getsockname()[1])
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, str(pid), "2", port], env=env,
+        [sys.executable, "-c", worker, str(pid), "2", port], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for pid in range(2)]
     outs = []
@@ -155,4 +159,76 @@ def test_two_process_gloo_multihost_scan():
             p.kill()
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, f"worker failed:\n{out}\n{err[-2000:]}"
+    return [out for out, _ in outs]
+
+
+def test_two_process_gloo_multihost_scan():
+    for out in _two_processes(_WORKER):
         assert "OK" in out
+
+
+_INT_ROWS = 16
+_INT_WORKER = r"""
+import json
+import sys
+import torch
+torch.set_num_threads(1)
+from cudasp_tpu_torch.oracle import vectors as V
+from cudasp_tpu_torch.parallel import distributed as D
+from cudasp_tpu_torch.parallel import partition
+import cudasp_tpu_torch as ct
+
+pid, n, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+D.init(coordinator_address=f"127.0.0.1:{port}", num_processes=n,
+       process_id=pid)
+case = V.CASES[0]
+rows = case.rows * 8
+table = {
+    "txid": [1000 + 7919 * i for i in range(len(rows))],
+    "height": [r.height for r in rows],
+    "tweak_key": [r.tweak_blob for r in rows],
+    "outputs": [list(r.outputs) for r in rows],
+}
+mine = partition.local_shard_indices(D._partition_keys(table["txid"]), n,
+                                     pid)
+matches = D.multihost_scan(table, case.scan_key_blob, case.spend_blob,
+                           device="cpu", config=ct.ScanConfig(block_rows=8))
+print(json.dumps({"rows": len(mine), "matches": matches.tolist()}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_process_gloo_multihost_scan_integer_txids():
+    """Integer txids spread over both processes (the JAX package keys them
+    as bytes(v), v zero bytes: one part for every id >= 32); the gathered
+    indices equal the JAX package's scan of the same table."""
+    rows = JV.CASES[0].rows * 8
+    table = {"txid": [1000 + 7919 * i for i in range(_INT_ROWS)],
+             "height": [r.height for r in rows],
+             "tweak_key": [r.tweak_blob for r in rows],
+             "outputs": [list(r.outputs) for r in rows]}
+    case = JV.CASES[0]
+    ref = cudasp_tpu.scan(table, case.scan_key_blob, case.spend_blob)
+    res = [json.loads(out.splitlines()[-1])
+           for out in _two_processes(_INT_WORKER)]
+    assert all(r["rows"] > 0 for r in res)
+    assert sum(r["rows"] for r in res) == _INT_ROWS
+    for r in res:
+        assert r["matches"] == ref.indices.tolist() == list(range(0, 16, 2))
+
+
+@pytest.mark.parametrize("col", [
+    [5, None, 2**64 - 1, -1],
+    np.asarray([5, 0, -1, -1], np.int64),
+    np.asarray([5, 0, 2**64 - 1, 2**64 - 1], np.uint64),
+], ids=["list", "int64", "uint64"])
+def test_integer_partition_keys_by_value(col):
+    """Integers key the partition by value (NULL as 0, negatives as two's
+    complement); bytes, and uint8 matrices, as before."""
+    keys = D._partition_keys(col)
+    assert keys.dtype == np.uint64
+    assert keys.tolist() == [5, 0, 2**64 - 1, 2**64 - 1]
+    raw = D._partition_keys([b"\x01\x02", None])
+    assert raw.shape == (2, 32) and raw[0, :2].tolist() == [1, 2]
+    mat = np.ones((3, 32), np.uint8)
+    assert D._partition_keys(mat) is mat
