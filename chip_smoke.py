@@ -4,14 +4,16 @@
 #     python3 chip_smoke.py
 #
 # Builds the scan kernel's three ladders from cudasp_tpu_torch/csrc with
-# nvcc, all builds started together: csrc/scan.cu ("fixed" and "wnaf") and
-# one generated translation unit per scan key ("static"). Holds each
-# against its plain-torch version and the golden vectors on the card, on
-# the exact wires and on the hi32 / hi16 / hi8 prefilter wires (K12, with
-# outputs exact and corrupted below the cut: a superset of the exact
-# flags), times each at the main path's launch width, then drives
-# cudasp_tpu_torch.scan over a 2,300,000-row table (the reference's "2
-# weeks" table, 3 outputs a row, ~1% planted matches) four times:
+# nvcc, all builds started together: csrc/scan.cu ("fixed" and "wnaf"),
+# one generated translation unit per scan key ("static"), csrc/probe.cu,
+# scan.cu's seven SP_ABLATE variants, and csrc/pack.cpp with g++. Holds
+# each ladder against its plain-torch version and the golden vectors on
+# the card, on the exact wires and on the hi32 / hi16 / hi8 prefilter
+# wires (K12, with outputs exact and corrupted below the cut: a superset
+# of the exact flags), times each at the main path's launch width, then
+# drives cudasp_tpu_torch.scan over a 2,300,000-row table (the
+# reference's "2 weeks" table, 3 outputs a row, ~1% planted matches) four
+# times:
 # ScanConfig() (fixed ladder, upload "auto"), ScanConfig(ladder="wnaf"),
 # ScanConfig(static_key=True, upload="full64") and ScanConfig(upload="hi8")
 # (the cut, then the exact pass over the rows it flags), each checked
@@ -60,7 +62,18 @@
 # CUDASP_METRICS=1 (the trace holds the executor's spans and the scan
 # kernel's device event); and the main path with one batch's launch, then
 # one batch's result, failing once (batch_retries == 1, exact), and a
-# launch failing twice (ExecutionError names the batch). Every phase
+# launch failing twice (ExecutionError names the batch). The host path:
+# every scan packs its batches on the executor's feeder thread with the
+# C packer (csrc/pack.cpp, built with g++ beside the nvcc builds), which
+# native-pack holds word for word against the numpy packer on every
+# upload mode at the launch width (1 thread and several, timed); every
+# main path's line counts the packer's calls by thread; feeder injects a
+# packing fault at batch 3 and a launch failing twice at batch 2 (each
+# ExecutionError names its batch, no feeder thread stays alive), and ramp
+# scans with CUDASP_RAMP=65536. The tools phase runs kernel_probe,
+# h2d_probe, concurrency_probe, ablate_probe (its seven SP_ABLATE
+# builds start with the others), scaling_probe, multihost_bench,
+# seed_cache and first_contact, each with its own check. Every phase
 # prints one line with its result and the elapsed seconds; any failure
 # raises, so the exit code is non-zero. The last lines are the kernels'
 # JSON line, the card's name and power limit, and {"ok": true, "device":
@@ -420,10 +433,15 @@ def check(name, kf, pf, width, expect, superset=False):
 
 
 def compare(name, ladder, planes, bmask, q, wire, expect, pack_flags=False,
-            hi_only=None, nout=None):
+            hi_only=None, nout=None, plain=None):
     """Kernel vs plain on the same device tensors, on the x / xy wire or a
     cut (hi_only, whose flags need only contain `expect`). The
-    comparison's own launch is taken back out of the kernel's counts."""
+    comparison's own launch is taken back out of the kernel's counts.
+    plain: a dict that keeps the first plain flags computed and serves
+    them to the next call with it (the golden cases: the fixed ladder's
+    plain version once per case and wire; every ladder's plain version
+    computes the same flags, and kernel-vs-plain holds each ladder's own
+    on random rows)."""
     import torch
 
     from cudasp_tpu_torch.ops import kernels as K
@@ -437,11 +455,16 @@ def compare(name, ladder, planes, bmask, q, wire, expect, pack_flags=False,
                       pack_flags=pack_flags, ladder=ladder,
                       static_sched=static, hi_only=hi_only, nout=nout)
     torch.cuda.synchronize()
-    pf = K.scan_plain(*planes, digits, sp, lab, comb, bmask, wire=wire,
-                      block_rows=BLOCK_ROWS, ladder=ladder,
-                      static_sched=static, hi_only=hi_only, nout=nout)
-    if pack_flags:
-        pf = K.pack_flag_words(pf)
+    if plain is not None and "flags" in plain:
+        pf = plain["flags"]
+    else:
+        pf = K.scan_plain(*planes, digits, sp, lab, comb, bmask, wire=wire,
+                          block_rows=BLOCK_ROWS, ladder=ladder,
+                          static_sched=static, hi_only=hi_only, nout=nout)
+        if pack_flags:
+            pf = K.pack_flag_words(pf)
+        if plain is not None:
+            plain["flags"] = pf
     kern.launches, kern.hi_launches = counts
     return check(f"{name}/{ladder}/{hi_only or wire}", kf, pf,
                  planes[0].shape[1], expect, superset=hi_only is not None)
@@ -460,9 +483,13 @@ def golden_table(case):
 
 
 def build_all(static_keys):
-    """Every kernel library of the run, all nvcc builds started together:
-    csrc/scan.cu (fixed + wnaf), csrc/probe.cu and one static library per
-    scan key. Returns {digest: seconds until its library was loaded}."""
+    """Every library of the run, all builds started together: csrc/scan.cu
+    (fixed + wnaf), csrc/probe.cu, one static library per scan key, the
+    seven SP_ABLATE variants of scan.cu (ablate_probe's), each with nvcc,
+    and the host packer csrc/pack.cpp with g++. Returns ({digest: seconds
+    until its static library was loaded}, {stage: seconds until its
+    ablated library was loaded}, seconds of the packer's build)."""
+    from cudasp_tpu_torch.io import native
     from cudasp_tpu_torch.ops import kernels as K
     from cudasp_tpu_torch.ops import probes as P
     from cudasp_tpu_torch.ops import scalar as S
@@ -474,20 +501,27 @@ def build_all(static_keys):
         steps = S.glv_wnaf_static(blob32_to_scalar(blob))
         scheds[K.static_digest(steps)] = steps
 
-    def one_static(steps):
+    def timed(fn, *a):
         t0 = time.perf_counter()
-        st.library(steps)
+        fn(*a)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(scheds) + 2) as pool:
+    stages = {name: K.ablated_kernel(1 << i)
+              for i, name in enumerate(K.ABLATE_STAGES)}
+    with ThreadPoolExecutor(len(scheds) + len(stages) + 3) as pool:
         fixed = pool.submit(K.KERNELS["fixed"].library)
         probe = pool.submit(P.PROBES.library)
-        futs = {d: pool.submit(one_static, s) for d, s in scheds.items()}
+        packer = pool.submit(timed, native.library)
+        futs = {d: pool.submit(timed, st.library, s)
+                for d, s in scheds.items()}
+        abl = {n: pool.submit(timed, k.library) for n, k in stages.items()}
         fixed.result()
         probe.result()
         secs = {d: f.result() for d, f in futs.items()}
+        abl_secs = {n: f.result() for n, f in abl.items()}
+        pack_secs = packer.result()
     K.KERNELS["wnaf"].library()          # the same library as fixed
-    return secs
+    return secs, abl_secs, pack_secs
 
 
 def probe_vs_plain(device, comb, lanes, repeats):
@@ -882,7 +916,7 @@ def sharded_phase(table, planted, key, spend, smi):
     return out
 
 
-def mesh_main_paths(table, planted, key, spend, smi):
+def mesh_main_paths(table, planted, key, spend, calls, smi):
     """mesh-main-path: the 2,300,000-row table over make_mesh() (every
     card), over 4 entries on cuda:0, that mesh with rebalance=True, and
     on hi8; each must return exactly the planted rows through the sharded
@@ -947,10 +981,15 @@ def mesh_main_paths(table, planted, key, spend, smi):
         for kern in K.KERNELS.values():
             kern.launches = kern.hi_launches = 0
         K.SHARDED.launches = 0
+        calls.reset()
         t0 = time.perf_counter()
         res = ct.scan(table, key, spend, config=ct.ScanConfig(**fields))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        packed = dict(calls.by_thread)
+        if packed.get("cudasp-feeder") != res.metrics.batches or feeders():
+            raise AssertionError(f"mesh path {name}: pack_wire calls by "
+                                 f"thread {packed}")
         counts = {n: kern.launches for n, kern in K.KERNELS.items()}
         cut = K.KERNELS["fixed"].hi_launches
         sharded = K.SHARDED.launches
@@ -986,7 +1025,8 @@ def mesh_main_paths(table, planted, key, spend, smi):
               + (f", upload {fields['upload']}" if fields.get("upload")
                  else "")
               + f"): {MAIN_ROWS} rows in {secs:.3f} s = "
-              f"{MAIN_ROWS / secs:,.0f} tx/s; {len(res.indices)} matches == "
+              f"{MAIN_ROWS / secs:,.0f} tx/s; C packer calls by thread "
+              f"{packed}; {len(res.indices)} matches == "
               f"planted; sharded launches {sharded} ({sharded / size:g} a "
               f"shard over {m.batches} batches), kernel launches {counts}; "
               f"upload {m.upload_mode}, {m.launch_rows} rows a batch; pack "
@@ -1000,6 +1040,302 @@ def mesh_main_paths(table, planted, key, spend, smi):
         phase("all-cards", "only one card is present: the all-cards mesh "
               "is a one-entry mesh; no multi-card number was measured")
     return launches, exchange
+
+
+PACK_MODES = ("full", "full64", "hi32", "hi16", "hi8")
+
+
+def native_pack_phase(table, smi):
+    """native-pack: the C packer's pack_wire against the numpy
+    pack_batch_arrays (and its staging copy's order of planes) at the
+    launch width, on every mode: the words bit for bit, and each one's ms
+    (best of 5, host clock), pack_wire into a pinned buffer with 1 thread
+    and with native.PACK_THREADS. Returns {mode: timings}."""
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.io import ingest, native
+    from cudasp_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    width = ct.api.TILE_CUDA
+    flat, offs = table["outputs"]
+    b = next(ingest.iter_packed(table["tweak_key"][:width],
+                                flat[:offs[width]], offs[:width + 1], width,
+                                OUTPUTS_PER_ROW))
+    args = (b.tweak_blobs, b.row_valid, b.outputs_hi, b.outputs_lo,
+            b.outputs_valid)
+    pinned = torch.empty((native.plane_rows("full64", OUTPUTS_PER_ROW) + 1)
+                         * width, dtype=torch.int32, pin_memory=True)
+    out_np = pinned.numpy()
+
+    def best(fn, reps=5):
+        fn()
+        t = float("inf")
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            fn()
+            t = min(t, time.perf_counter() - t1)
+        return t * 1e3
+
+    res, bad = {}, 0
+    for mode in PACK_MODES:
+        cut = mode if mode.startswith("hi") else None
+
+        def numpy_pack():
+            planes = K.pack_batch_arrays(
+                *args, block_rows=BLOCK_ROWS,
+                wire="xy" if mode == "full64" else "x", hi_only=cut)
+            keep = {None: (0, 1, 2, 3), "hi32": (0, 1, 3)}.get(cut, (0, 1))
+            return np.concatenate([planes[k] for k in keep])
+
+        ref = numpy_pack()
+        got = native.pack_wire(*args, mode, width, BLOCK_ROWS, width,
+                               out=out_np)
+        words = int(np.count_nonzero(got[:-1].view(np.uint32) != ref))
+        one = native.pack_wire(*args, mode, width, BLOCK_ROWS, width,
+                               threads=1)
+        words += int(np.count_nonzero(one[:-1] != ref))
+        bad += words
+        res[mode] = {
+            "mismatched_words": words, "numpy_ms": best(numpy_pack),
+            "c_1_thread_ms": best(lambda: native.pack_wire(
+                *args, mode, width, BLOCK_ROWS, width, out=out_np,
+                threads=1)),
+            "c_threads_ms": best(lambda: native.pack_wire(
+                *args, mode, width, BLOCK_ROWS, width, out=out_np)),
+            "bytes": int(ref.nbytes)}
+    if bad:
+        raise AssertionError(f"native-pack: {bad} words differ from "
+                             f"pack_batch_arrays: {res}")
+    phase("native-pack", f"pack_wire (csrc/pack.cpp) == numpy "
+          f"pack_batch_arrays at {width} rows, {OUTPUTS_PER_ROW} outputs, "
+          f"every mode, into pinned memory: mismatched words 0; ms numpy / "
+          f"C 1 thread / C {native.PACK_THREADS} threads: " + ", ".join(
+              f"{m} {v['numpy_ms']:.2f} / {v['c_1_thread_ms']:.2f} / "
+              f"{v['c_threads_ms']:.2f} ({v['bytes'] / 1e6:.1f} MB)"
+              for m, v in res.items())
+          + f" | {smi} [{time.perf_counter() - t0:.1f} s]")
+    return res
+
+
+class PackCalls:
+    """Counts native.pack_wire's calls by the name of the thread that made
+    them (wraps it for the run; the executor calls it through the
+    module)."""
+
+    def __init__(self):
+        from collections import Counter
+
+        from cudasp_tpu_torch.io import native
+
+        self.by_thread = Counter()
+        self.real = native.pack_wire
+        self.fail_at = None
+        native.pack_wire = self
+
+    def __call__(self, *a, **kw):
+        import threading
+
+        self.by_thread[threading.current_thread().name] += 1
+        if self.fail_at is not None and self.fail_at[0] == 0:
+            self.fail_at = None
+            raise RuntimeError("injected packing fault")
+        if self.fail_at is not None:
+            self.fail_at[0] -= 1
+        return self.real(*a, **kw)
+
+    def reset(self):
+        self.by_thread.clear()
+
+
+def feeders():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "cudasp-feeder"]
+
+
+def feeder_phase(table, planted, key, spend, calls, smi):
+    """feeder: on the card, a packing fault injected at batch 3 raises
+    ExecutionError(3), a launch failing twice at batch 2 raises
+    ExecutionError(2), neither leaves a feeder thread alive, and the next
+    scan is exact."""
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+    from cudasp_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    calls.fail_at = [3]
+    try:
+        ct.scan(table, key, spend)
+        raise AssertionError("feeder: the injected packing fault passed")
+    except ct.ExecutionError as e:
+        if e.batch_index != 3 or "injected" not in str(e.cause):
+            raise
+    finally:
+        calls.fail_at = None
+    alive = len(feeders())
+    real = K.scan_flags
+    n = [0]
+
+    def flaky(*a, **kw):
+        n[0] += 1
+        if n[0] in (3, 4):
+            raise RuntimeError("injected launch fault")
+        return real(*a, **kw)
+
+    K.scan_flags = flaky
+    try:
+        ct.scan(table, key, spend)
+        raise AssertionError("feeder: the injected launch fault passed")
+    except ct.ExecutionError as e:
+        if e.batch_index != 2:
+            raise
+    finally:
+        K.scan_flags = real
+    torch.cuda.synchronize()
+    alive += len(feeders())
+    res = ct.scan(table, key, spend)
+    if alive or feeders() or not np.array_equal(res.indices, planted):
+        raise AssertionError(f"feeder: {alive} feeder threads left, "
+                             f"{len(res.indices)} rows")
+    phase("feeder", "packing fault at batch 3 -> ExecutionError(3); launch "
+          "failing twice at batch 2 -> ExecutionError(2); feeder threads "
+          f"alive after each: 0; the next scan == planted ({len(planted)} "
+          f"rows) | {smi} [{time.perf_counter() - t0:.1f} s]")
+
+
+RAMP_ROWS = 65_536
+
+
+def ramp_phase(table, planted, key, spend, smi):
+    """ramp: CUDASP_RAMP=65536 (a 65,536-row first batch) gives the same
+    rows, in one more batch."""
+    import numpy as np
+    import torch
+
+    import cudasp_tpu_torch as ct
+
+    t0 = time.perf_counter()
+    os.environ["CUDASP_RAMP"] = str(RAMP_ROWS)
+    try:
+        t1 = time.perf_counter()
+        res = ct.scan(table, key, spend)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+    finally:
+        del os.environ["CUDASP_RAMP"]
+    m = res.metrics
+    want = 1 + -(-(MAIN_ROWS - RAMP_ROWS) // ct.api.TILE_CUDA)
+    if not np.array_equal(res.indices, planted) or m.batches != want:
+        raise AssertionError(f"ramp: {len(res.indices)} rows, "
+                             f"{m.batches} batches (want {want})")
+    phase("ramp", f"CUDASP_RAMP={RAMP_ROWS}: {MAIN_ROWS} rows == planted in "
+          f"{m.batches} batches, {secs:.3f} s = {MAIN_ROWS / secs:,.0f} "
+          f"tx/s; pack {m.pack_seconds:.3f} s, staging "
+          f"{m.upload_seconds:.4f} s | {smi} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    return secs
+
+
+def tools_phase(stages, smi):
+    """tools: each of the slice's tools on the card with its check:
+    kernel_probe (every ladder and wire OK), h2d_probe, concurrency_probe
+    (2 tenants, both exact), ablate_probe (all seven stages, its budget
+    beside stage_profile's from probe-time), scaling_probe (quick),
+    multihost_bench (2 gloo processes on cuda:0), seed_cache twice (the
+    second makes no nvcc run) and first_contact --skip-autotune (a
+    reduced row count). Returns the ablation's result."""
+    from cudasp_tpu_torch.tools import (ablate_probe, concurrency_probe,
+                                        h2d_probe, kernel_probe,
+                                        scaling_probe, seed_cache)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    kp = kernel_probe.main(["--reps", "3"])
+    if not all(r["ok"] for r in kp):
+        raise AssertionError(f"kernel_probe: {kp}")
+    phase("tools", "kernel_probe (262,144 rows of tools/dataset.py, "
+          "device-resident): " + ", ".join(
+              f"{r['ladder']}/{r['wire']} OK {r['ms']:.3f} ms "
+              f"({r['rows_per_s'] / 1e6:.1f} M rows/s)" for r in kp)
+          + f" | {smi} [{time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    h2d = h2d_probe.main([])
+    phase("tools", "h2d_probe (262,144 rows, full wire, "
+          f"{h2d['bytes'] / 1e6:.1f} MB): " + ", ".join(
+              f"{k} {v['ms']:.3f} ms" + (f" ({v['MB_per_s'] / 1e3:.2f} GB/s)"
+                                         if "MB_per_s" in v else "")
+              for k, v in h2d.items() if isinstance(v, dict))
+          + f" | {smi} [{time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    cp = concurrency_probe.main(["--rows", "500000", "--tenants", "2",
+                                 "--pool", "64"])
+    phase("tools", f"concurrency_probe: 2 tenants x 500,000 rows, both "
+          f"exact; single {cp['single_tx_per_s']:,.0f} tx/s, together "
+          f"{cp['aggregate_tx_per_s']:,.0f} tx/s aggregate "
+          f"({cp['speedup']:.2f}x) | {smi} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    ab = ablate_probe.main(["--reps", "4"])
+    if set(ab["stages"]) != set(ablate_probe.K.ABLATE_STAGES):
+        raise AssertionError(f"ablate_probe: {ab}")
+    phase("tools", f"ablate_probe (262,144 random rows, fixed/x): base "
+          f"{ab['base_ms']:.3f} ms; stage cost (base - ablated) "
+          + ", ".join(f"{n} {v['cost_ms']:.3f} ms ({v['share']:.1%})"
+                      for n, v in ab["stages"].items())
+          + f"; budget {ab['budget']['ms']:.3f} ms = "
+          f"{ab['budget']['share']:.1%} of the kernel, beside stage_profile's"
+          f" {stages['budget']['share']:.1%} of FULL (probe-time) | {smi} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    sc = scaling_probe.main(["--reps", "2", "--xla-rows-per-device",
+                             "256"])
+    phase("tools", "scaling_probe (65,536 rows an entry; xla 256): "
+          + ", ".join(f"{r['probe']} {r['mesh']} {r['ms']:.2f} ms "
+                      f"(eff {r['efficiency']:.2f})" for r in sc)
+          + f"; {sc[0]['note']} | {smi} [{time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    mh = subprocess.run(
+        [sys.executable, "-m", "cudasp_tpu_torch.tools.multihost_bench",
+         "--spawn", "2", "--devices", "cuda:0", "--rows", "200000",
+         "--pool", "64", "--repeats", "2", "--batch-size", "262144"],
+        cwd=root, capture_output=True, text=True, timeout=400)
+    if mh.returncode != 0:
+        raise AssertionError(f"multihost_bench failed ({mh.returncode}):\n"
+                             f"{mh.stdout}\n{mh.stderr[-3000:]}")
+    mline = json.loads(mh.stdout.strip().splitlines()[-1])
+    phase("tools", f"multihost_bench --spawn 2 (gloo, both on cuda:0), "
+          f"200,000 rows, merges == is_match: {mline} | {smi} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    from cudasp_tpu_torch.oracle import vectors as V
+
+    keys = ["--scan-key", V.SCAN_KEY_BIP352.hex()]
+    s1 = seed_cache.main(keys)
+    s2 = seed_cache.main(keys)
+    if s2["nvcc_runs"] or s2["gxx_runs"]:
+        raise AssertionError(f"seed_cache: a second run built {s2}")
+    fc = subprocess.run(
+        [sys.executable, "-m", "cudasp_tpu_torch.tools.first_contact",
+         "--skip-autotune", "--rows", "262144", "--pool", "64"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    if fc.returncode != 0:
+        raise AssertionError(f"first_contact failed ({fc.returncode}):\n"
+                             f"{fc.stdout}\n{fc.stderr[-3000:]}")
+    fsum = json.loads(fc.stdout.strip().splitlines()[-1])
+    fscan = [ln for ln in fc.stdout.splitlines() if ln.startswith('{"rows"')]
+    phase("tools", f"seed_cache twice with the BIP-352 key: first "
+          f"{s1['nvcc_runs']} nvcc / {s1['gxx_runs']} g++ runs "
+          f"({s1['seconds']:.2f} s), second {s2['nvcc_runs']} / "
+          f"{s2['gxx_runs']} ({s2['seconds']:.2f} s); first_contact "
+          f"--skip-autotune (262,144 rows): steps {fsum['steps']}, scan "
+          f"{fscan[-1] if fscan else '?'} | {smi} "
+          f"[{time.perf_counter() - t0:.1f} s]")
+    return ab
 
 
 MULTIHOST_ROWS = 20_000
@@ -1867,7 +2203,7 @@ def main():
     # --- builds: scan.cu and a static library per distinct key, at once --
     static_keys = sorted({c.scan_key_blob for c in V.CASES} | {key})
     t0 = time.perf_counter()
-    static_secs = build_all(static_keys)
+    static_secs, ablate_secs, pack_secs = build_all(static_keys)
     fx = K.KERNELS["fixed"]
     bs = fx.build_seconds
     ptxas = K.ptxas_info(fx.build_log)
@@ -1882,6 +2218,13 @@ def main():
           + ptxas_text(K.ptxas_info(st.build_log)))
     ptxas.update(K.ptxas_info(st.build_log))
     static_runs = st.nvcc_runs
+    from cudasp_tpu_torch.io import native
+    phase("build-ablate", "csrc/scan.cu with -DSP_ABLATE=<stage> (fixed "
+          "ladder only; ablate_probe's): " + ", ".join(
+              f"{n} {v:.1f} s" for n, v in ablate_secs.items())
+          + f"; csrc/pack.cpp (g++ {' '.join(native.GXX_FLAGS)}): "
+          + (f"{native.STATE.build_seconds:.1f} s" if native.STATE.runs
+             else "cached") + f", loaded after {pack_secs:.1f} s")
     from cudasp_tpu_torch.ops import probes as P
     pb = P.PROBES.build_seconds
     phase("build-probe", "csrc/probe.cu (alu, bench, stage kernels): "
@@ -1912,6 +2255,10 @@ def main():
           f"algorithm on Python integers (the op mod p, below 2^256): "
           f"mismatches {bad} [{time.perf_counter() - t0:.1f} s]")
 
+    # --- the host packer against the numpy packer ------------------------
+    native_pack = native_pack_phase(table, smi)
+    calls = PackCalls()
+
     # --- kernel vs plain on the card -------------------------------------
     # tallies by kernel: each ladder's exact wires, and "hi" (K12) for
     # every ladder on the cut wires
@@ -1930,17 +2277,21 @@ def main():
         nout = int(np.diff(tab["outputs"][1]).max())
         for wire in ("x", "xy"):
             planes, _ = pack_rows(tab, len(case.rows), wire)
+            plain = {}
             for ladder in LADDERS:
                 tally(ladder, compare(case.name, ladder, planes, None, q,
-                                      wire, expect))
+                                      wire, expect, plain=plain))
         for hi in CUTS:
             planes, _ = pack_rows(tab, len(case.rows), "x", hi_only=hi)
+            plain = {}
             for ladder in LADDERS:
                 tally("hi", compare(case.name, ladder, planes, None, q, "x",
-                                    expect, hi_only=hi, nout=nout))
+                                    expect, hi_only=hi, nout=nout,
+                                    plain=plain))
     phase("golden", f"{len(V.CASES)} cases x {len(LADDERS)} ladders x "
           f"(2 exact wires: kernel == plain == expected; 3 cut wires: "
-          f"kernel == plain >= expected)")
+          f"kernel == plain >= expected; the fixed ladder's plain version "
+          f"once a case and wire)")
 
     q = query(key, spend, ())
     exp_r = set(planted[planted < RANDOM_ROWS].tolist())
@@ -2072,12 +2423,22 @@ def main():
         ct.scan(head, key, spend, config=ct.ScanConfig(**fields))  # warm-up
         for kern in K.KERNELS.values():
             kern.launches = kern.hi_launches = 0
+        calls.reset()
         t0 = time.perf_counter()
         res = ct.scan(table, key, spend, config=ct.ScanConfig(**fields))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {n: kern.launches for n, kern in K.KERNELS.items()}
         cut = K.KERNELS[ladder].hi_launches
+        packed = dict(calls.by_thread)
+        # every batch was packed by the C packer on the feeder thread (the
+        # exact pass's, on the caller's)
+        if packed.get("cudasp-feeder") != res.metrics.batches or set(
+                packed) - {"cudasp-feeder", "MainThread"} or (
+                name != "hi" and "MainThread" in packed) or feeders():
+            raise AssertionError(f"main path {name}: pack_wire calls by "
+                                 f"thread {packed}, {res.metrics.batches} "
+                                 f"batches")
         if not np.array_equal(res.indices, planted):
             raise AssertionError(
                 f"main path {name}: {len(res.indices)} matches, expected "
@@ -2110,6 +2471,7 @@ def main():
                      f"{cut}, {m.upload_bytes / MAIN_ROWS:.2f} B/row up")
         phase("main-path", f"ScanConfig({fields}): {MAIN_ROWS} rows in "
               f"{secs:.3f} s = {MAIN_ROWS / secs:,.0f} tx/s end to end; "
+              f"C packer calls by thread {packed}; "
               f"{len(res.indices)} matches == planted; launches {counts}; "
               f"ladder {m.ladder}, upload {m.upload_mode}, {m.launch_rows} "
               f"rows a launch; pack {m.pack_seconds:.3f} s, staging "
@@ -2129,6 +2491,10 @@ def main():
     phase("static-cache", "warm-up, main path and a second static scan "
           "with the same key: 0 nvcc runs after the build")
 
+    # --- the feeder's faults, the ramp -----------------------------------
+    feeder_phase(table, planted, key, spend, calls, smi)
+    ramp_phase(table, planted, key, spend, smi)
+
     # --- the reference's whole ScanConfig: tuning, the XLA backend ---------
     tuning_phase(smi)
     xla_golden_phase(smi)
@@ -2147,7 +2513,7 @@ def main():
     # version, timed; the mesh main paths; two processes on gloo ---------
     sharded = sharded_phase(table, planted, key, spend, smi)
     mesh_launches, exchange = mesh_main_paths(table, planted, key, spend,
-                                              smi)
+                                              calls, smi)
     multihost_phase()
 
     # --- the probe kernels: each case against its plain version, then
@@ -2220,6 +2586,9 @@ def main():
         for k, v in probes.items()) + f" | {smi} "
         f"[{time.perf_counter() - t0:.1f} s]")
 
+    # --- the slice's tools ------------------------------------------------
+    ablate = tools_phase(stages, smi)
+
     def probe_entry(name):
         v = probes[name]
         return {
@@ -2269,6 +2638,11 @@ def main():
         if name == "fixed":
             e["launches_by_path"] = {k: v for k, v in surface.items()
                                      if k != "stream-mesh"}
+            # ablate_probe's SP_ABLATE variants of this kernel: base - the
+            # variant's ms, a stage each
+            e["ablate_stage_ms"] = {n: v["cost_ms"] for n, v in
+                                    ablate["stages"].items()}
+            e["ablate_base_ms"] = ablate["base_ms"]
         return e
 
     sharded_entry = {

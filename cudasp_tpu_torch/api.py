@@ -517,11 +517,14 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
     lens = offsets[1:] - offsets[:-1]
     max_out = int(min(cfg.max_outputs, MAX_OUTPUTS_CAP,
                       max(int(lens.max()) if n_scan else 1, 1)))
-    pack_time = [0.0]
+    # the pipeline ramp (a small first batch, so the card starts sooner),
+    # opt-in as in the JAX package, on the kernel's backend only; the
+    # executor's feeder times the packing (metrics.pack_seconds)
+    ramp = int(os.environ.get("CUDASP_RAMP", "0")) \
+        if backend == "pallas" else 0
     batches = ingest.iter_packed(tweaks_scan, flat, offsets,
                                  batch_size=eff_batch, max_outputs=max_out,
-                                 row_indices=row_indices,
-                                 pack_seconds=pack_time)
+                                 row_indices=row_indices, ramp=ramp)
     if metrics is not None:
         metrics.rows_in = n
         metrics.launch_rows = eff_batch
@@ -555,7 +558,6 @@ def _scan_impl(table, scan_private_key, spend_public_key, label_keys=(), *,
 
     if metrics is not None:
         metrics.rows_scanned = rows_scanned
-        metrics.pack_seconds += pack_time[0]
         metrics.matches = len(idx)
         metrics.total_seconds = timer.lap()
     return ScanResult(

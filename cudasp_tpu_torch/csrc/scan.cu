@@ -16,12 +16,17 @@ extern "C" int cudasp_scan_launch(
     const uint32_t* spend, const uint32_t* labels, int nlabels,
     const uint32_t* comb, const int32_t* blockmask, int block_rows, int B,
     int M, int wire_xy, int hi, int packed, void* flags, void* stream) {
+#if SP_ABLATE
+    // an ablated build (tools/ablate_probe.py) holds the fixed ladder only
+    if (ladder != 0) return (int)cudaErrorInvalidValue;
+#else
     if (ladder == 1)
         return sp::launch_scan(sp::wnaf_ladder(digits), tw, oh, ol, ovm,
                                spend, labels, nlabels, comb, blockmask,
                                block_rows, B, M, wire_xy, hi, packed, flags,
                                stream);
     if (ladder != 0) return (int)cudaErrorInvalidValue;
+#endif
     return sp::launch_scan(sp::fixed_ladder(digits), tw, oh, ol, ovm, spend,
                            labels, nlabels, comb, blockmask, block_rows, B,
                            M, wire_xy, hi, packed, flags, stream);

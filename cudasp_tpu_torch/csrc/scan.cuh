@@ -120,4 +120,8 @@ int launch_scan(const Ladder& lad, const uint32_t* tw, const uint32_t* oh,
 }
 
 }  // namespace sp
+
+// The SP_ABLATE mask the library was built with (0 in the default build):
+// ops/kernels.py loads a scan library only for the mask it asked for.
+extern "C" int cudasp_scan_ablate() { return SP_ABLATE; }
 #endif  // __CUDACC__

@@ -49,6 +49,23 @@ struct fe {
     uint32_t v[8];
 };
 
+// Stage ablation, a build variant for tools/ablate_probe.py only: built
+// with -DSP_ABLATE=<mask>, scan_row() swaps each stage whose bit is set
+// for a cheap stand-in that keeps its inputs and outputs live, so the
+// compiler keeps the rest of the row (the JAX package's CUDASP_ABLATE,
+// cudasp_tpu/ops/kernels.py:64-71). The ladder and comb keep 2 of their
+// windows (the wnaf ladder 4 of its steps). The flags of an ablated build
+// are garbage; the default build leaves SP_ABLATE at 0, where every
+// stand-in is dead code.
+#ifndef SP_ABLATE
+#define SP_ABLATE 0
+#endif
+enum {
+    ABLATE_SQRT = 1, ABLATE_TABLE = 2, ABLATE_LADDER = 4,
+    ABLATE_SERIALIZE = 8, ABLATE_HASH = 16, ABLATE_COMB = 32,
+    ABLATE_MATCH = 64
+};
+
 static const int ODD_WINDOWS = 32;
 static const int SCHED_COLS = ODD_WINDOWS + 2;
 static const int WNAF_STEPS = 54;
@@ -819,8 +836,9 @@ SP_HD SP_INLINE jac ladder(const OddTable& t, const Sched& s) {
     acc.z = fe_one();
     pick(t, 1, s.d[1][0], qx, qy);
     acc = pt_madd(acc, qx, qy);
+    const int windows = (SP_ABLATE & ABLATE_LADDER) ? 2 : ODD_WINDOWS;
     SP_ROLLED
-    for (int i = 1; i < ODD_WINDOWS; i++) {
+    for (int i = 1; i < windows; i++) {
         SP_ROLLED
         for (int k = 0; k < 4; k++) acc = pt_dbl(acc);
         SP_ROLLED
@@ -847,8 +865,9 @@ SP_HD SP_INLINE jac ladder_wnaf(const OddTable& t, const WSched& s) {
     jac acc;
     pickw(t, s.code[0], acc.x, acc.y);         // step 0: the init add
     acc.z = fe_one();
+    const int steps = (SP_ABLATE & ABLATE_LADDER) ? 4 : WNAF_STEPS;
     SP_ROLLED
-    for (int i = 1; i < WNAF_STEPS; i++) {
+    for (int i = 1; i < steps; i++) {
         uint32_t code = s.code[i];
         SP_ROLLED
         for (int k = 0; k < s.nd[i]; k++) acc = pt_dbl(acc);
@@ -935,8 +954,9 @@ SP_HD SP_INLINE jac comb_mul(const uint32_t hw[8], const uint32_t* comb,
     jac acc;
     acc.x = fe_zero(); acc.y = fe_zero(); acc.z = fe_zero();
     inf = true;
+    const int windows = (SP_ABLATE & ABLATE_COMB) ? 2 : 32;
     SP_ROLLED
-    for (int i = 0; i < 32; i++) {
+    for (int i = 0; i < windows; i++) {
         uint32_t b = (hw[i >> 2] >> (8 * (3 - (i & 3)))) & 0xFFu;
         if (b == 0) continue;
         const uint32_t* e = comb + ((size_t)i * 256 + b) * 16;
@@ -1025,6 +1045,8 @@ SP_HD SP_INLINE int scan_row(const uint32_t* tw, int stride, int wire_xy,
     fe px = fe_load(tw, stride), py;
     if (wire_xy) {
         py = fe_load(tw + 8 * stride, stride);
+    } else if (SP_ABLATE & ABLATE_SQRT) {
+        py = (ovm >> 30) & 1u ? px : fe_neg(px);
     } else {
         // decompress: y = +-sqrt(x^3 + 7), sign from the wire's parity bit
         fe seven = fe_zero();
@@ -1033,15 +1055,35 @@ SP_HD SP_INLINE int scan_row(const uint32_t* tw, int stride, int wire_xy,
         uint32_t want = (ovm >> 30) & 1u;
         py = ((fe_canon(y0).v[0] & 1u) == want) ? y0 : fe_neg(y0);
     }
-    build_table(px, py, t);
+    if (SP_ABLATE & ABLATE_TABLE) {
+        SP_ROLLED
+        for (int m = 0; m < 8; m++) {
+            t.put(TAB_X + m, px);
+            t.put(TAB_BX + m, py);
+            t.put(TAB_Y + m, py);
+        }
+    } else {
+        build_table(px, py, t);
+    }
     jac e = lad(t);
-    // to affine (zero z inverts to zero), serialize, hash
-    fe zi = fe_inv(e.z);
-    fe zi2 = fe_sqr(zi);
-    fe ax = fe_canon(fe_mul(e.x, zi2));
-    uint32_t par = fe_canon(fe_mul(e.y, fe_mul(zi, zi2))).v[0] & 1u;
     uint32_t hw[8];
-    tagged_hash(ax, par, hw);
+    if (SP_ABLATE & ABLATE_SERIALIZE) {
+        SP_UNROLL
+        for (int i = 0; i < 8; i++)
+            hw[i] = px.v[i] ^ e.x.v[i] ^ e.y.v[i] ^ e.z.v[i];
+    } else {
+        // to affine (zero z inverts to zero), serialize, hash
+        fe zi = fe_inv(e.z);
+        fe zi2 = fe_sqr(zi);
+        fe ax = fe_canon(fe_mul(e.x, zi2));
+        uint32_t par = fe_canon(fe_mul(e.y, fe_mul(zi, zi2))).v[0] & 1u;
+        if (SP_ABLATE & ABLATE_HASH) {
+            SP_UNROLL
+            for (int i = 0; i < 8; i++) hw[i] = ax.v[i] ^ par;
+        } else {
+            tagged_hash(ax, par, hw);
+        }
+    }
     bool oinf;
     jac o = comb_mul(hw, comb, oinf);
     // final = output + spend; candidates final, final + label_j
@@ -1051,6 +1093,17 @@ SP_HD SP_INLINE int scan_row(const uint32_t* tw, int stride, int wire_xy,
         f.x = sx; f.y = sy; f.z = fe_one();
     } else {
         f = pt_madd_call(o, sx, sy);
+    }
+    if (SP_ABLATE & ABLATE_MATCH) {
+        // the candidates' adds stay; no inversion, canon or compare
+        uint32_t bit = (f.x.v[0] + f.z.v[0]) & 1u;
+        SP_ROLLED
+        for (int j = 0; j < nlabels; j++) {
+            const uint32_t* l = labels + j * 16;
+            jac c = pt_madd_call(f, fe_load(l, 1), fe_load(l + 8, 1));
+            bit ^= (c.x.v[0] + c.z.v[0]) & 1u;
+        }
+        return (int)bit;
     }
     bool hit = candidate_hits(f, oh, ol, stride, M, hi, ovm);
     SP_ROLLED

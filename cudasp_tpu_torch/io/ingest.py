@@ -1,15 +1,15 @@
 """Columnar ingest: host-side packing of scan inputs into fixed-shape
 batches (counterpart of cudasp_tpu/io/ingest.py:112-273, kernel layout
 only). Ragged per-row output lists become padded (B, M) planes; rows with
-more than M outputs split into virtual rows that share a source index.
-Everything is vectorised numpy. The XLA backend (ops/pipeline.py) reads
-the same batches, through the kernel's "xy" wire planes (the literal
-64-byte point): it needs no layout of its own."""
+more than M outputs split into virtual rows that share a source index,
+gathered by the port's C packer (io/native.py count_chunks and
+pack_outputs); dense tables take numpy slices. The XLA backend
+(ops/pipeline.py) reads the same batches, through the kernel's "xy" wire
+planes (the literal 64-byte point): it needs no layout of its own."""
 
 from __future__ import annotations
 
 import sys
-import time
 from dataclasses import dataclass
 from typing import Iterable, Optional, Sequence, Tuple
 
@@ -18,17 +18,14 @@ import numpy as np
 from ..oracle.encoding import blob32_to_scalar, blob64_to_point
 from ..ops import field as F
 from ..ops import scalar as S
+from . import native
 
 
 def point_blobs_to_limbs(blobs: np.ndarray):
     """(B, 64) uint8 point blobs (LE x || LE y) -> two (8, B) uint32 word
-    planes: the port's kernel format of the x and y coordinates."""
-    b = np.ascontiguousarray(blobs, dtype=np.uint8)
-    if b.ndim != 2 or b.shape[1] != 64:
-        raise ValueError("expected (B, 64) byte array")
-    words = b.view("<u4").astype(np.uint32)               # (B, 16)
-    return (np.ascontiguousarray(words[:, :8].T),
-            np.ascontiguousarray(words[:, 8:].T))
+    planes: the port's kernel format of the x and y coordinates (the C
+    packer's pack_points)."""
+    return native.pack_points(blobs)
 
 
 def split_outputs_i64(vals: np.ndarray):
@@ -75,15 +72,17 @@ class PackedBatch:
 def iter_packed(tweak_blobs: np.ndarray, outputs_flat: np.ndarray,
                 outputs_offsets: np.ndarray, batch_size: int,
                 max_outputs: int, row_indices: Optional[np.ndarray] = None,
-                pack_seconds: Optional[list] = None):
-    """Yield PackedBatches of batch_size rows, lazily, so the executor packs
-    batch i+1 while the device computes batch i. Rows with empty outputs
+                ramp: int = 0):
+    """Yield PackedBatches of batch_size rows, lazily, so the executor's
+    feeder packs ahead while the device computes. Rows with empty outputs
     are dropped (they can never match); rows with more than max_outputs
-    values split into virtual rows sharing a source index.
-    pack_seconds: optional 1-element list accumulating host pack time."""
-    t0 = time.perf_counter()
+    values split into virtual rows sharing a source index (the executor's
+    feeder times the pulls: metrics.pack_seconds). ramp: if > 0 and the
+    table spans more than one batch, the first batch is this many rows (a
+    small pipeline-fill batch: the first upload overlaps nothing), as in
+    the JAX package's iter_packed(ramp=)."""
     tweak_blobs = np.ascontiguousarray(tweak_blobs, dtype=np.uint8)
-    offsets = np.asarray(outputs_offsets, dtype=np.int64)
+    offsets = np.ascontiguousarray(outputs_offsets, dtype=np.int64)
     n = len(offsets) - 1
     if row_indices is None:
         row_indices = np.arange(n, dtype=np.int64)
@@ -92,28 +91,24 @@ def iter_packed(tweak_blobs: np.ndarray, outputs_flat: np.ndarray,
     uniform = bool((lens == max_outputs).all())
     if uniform:
         total = n
-        src = starts = take = None
+        src = chunk = None
     else:
-        nch = (lens + max_outputs - 1) // max_outputs
-        total = int(nch.sum())
+        nch, total = native.count_chunks(offsets, max_outputs)
         src = np.repeat(np.arange(n, dtype=np.int64), nch)
         cum = np.zeros(n + 1, np.int64)
         np.cumsum(nch, out=cum[1:])
         chunk = np.arange(total, dtype=np.int64) - np.repeat(cum[:-1], nch)
-        starts = offsets[src] + chunk * max_outputs
-        take = np.minimum(lens[src] - chunk * max_outputs, max_outputs)
-    if pack_seconds is not None:
-        pack_seconds[0] += time.perf_counter() - t0
     if total == 0:
         return
-    midx = np.arange(max_outputs, dtype=np.int64)[None]
-    flat = np.asarray(outputs_flat, np.int64)
+    flat = np.ascontiguousarray(outputs_flat, np.int64)
     flat2d = flat.reshape(n, max_outputs) if uniform else None
-    for start in range(0, total, batch_size):
-        t0 = time.perf_counter()
-        stop = min(start + batch_size, total)
+    use_ramp = bool(ramp and 0 < ramp < batch_size and total > batch_size)
+    starts = ([0] + list(range(ramp, total, batch_size)) if use_ramp
+              else list(range(0, total, batch_size)))
+    for bi, start in enumerate(starts):
+        stop = starts[bi + 1] if bi + 1 < len(starts) else total
         k = stop - start
-        pad = batch_size - k
+        pad = (ramp if use_ramp and bi == 0 else batch_size) - k
         sl = slice(start, stop)
 
         def padrows(a, fill=0):
@@ -123,25 +118,21 @@ def iter_packed(tweak_blobs: np.ndarray, outputs_flat: np.ndarray,
                 [a, np.full((pad,) + a.shape[1:], fill, dtype=a.dtype)])
 
         if uniform:
-            vals = flat2d[sl]
+            hi, lo = split_outputs_i64(flat2d[sl])
             vmask = np.ones((k, max_outputs), bool)
             blobs = tweak_blobs[sl]
             srcs = row_indices[sl]
         else:
-            gidx = starts[sl, None] + midx
-            vmask = midx < take[sl, None]
-            vals = flat[np.where(vmask, gidx, 0)]
+            hi, lo, vmask = native.pack_outputs(flat, offsets, src[sl],
+                                                chunk[sl], max_outputs)
             blobs = tweak_blobs[src[sl]]
             srcs = row_indices[src[sl]]
-        hi, lo = split_outputs_i64(vals)
         batch = PackedBatch(
             tweak_blobs=padrows(blobs),
             row_valid=np.concatenate([np.ones(k, bool), np.zeros(pad, bool)]),
             outputs_hi=padrows(hi), outputs_lo=padrows(lo),
             outputs_valid=padrows(vmask),
             source_rows=padrows(srcs, fill=-1))
-        if pack_seconds is not None:
-            pack_seconds[0] += time.perf_counter() - t0
         yield batch
 
 

@@ -57,6 +57,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_TIMEOUT_S = 600
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 LADDERS = ("fixed", "wnaf", "static")
+# the stages csrc/secp256k1.cuh's SP_ABLATE swaps for stand-ins, bit i for
+# stage i (the JAX package's CUDASP_ABLATE names)
+ABLATE_STAGES = ("sqrt", "table", "ladder", "serialize", "hash", "comb",
+                 "match")
 DIGITS_SHAPES = {"fixed": (2, ODD_WINDOWS + 2), "wnaf": (2, WNAF_STEPS)}
 
 
@@ -425,6 +429,11 @@ def check_static_sched(static_sched) -> tuple:
     return steps
 
 
+def ablate_flags(mask: int) -> list:
+    """The nvcc (or g++) flags of an SP_ABLATE build; none for 0."""
+    return [f"-DSP_ABLATE={int(mask)}"] if mask else []
+
+
 def _hash_sources(h, names):
     for name in names:
         with open(os.path.join(_CSRC, name), "rb") as f:
@@ -479,18 +488,18 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_build(nvcc, src, so, *, generated=False):
-    """Compile `src` with NVCC_FLAGS (-I csrc) into the shared library
-    `so`: written under a temporary name, then renamed, with nvcc's log in
-    nvcc.log beside it. A generated source (a per-key unit) is deleted
-    once nvcc has read it and its log is redacted. Returns (seconds, log);
-    raises RuntimeError with the log when nvcc fails, leaving no
-    library."""
+def nvcc_build(nvcc, src, so, *, generated=False, flags=()):
+    """Compile `src` with NVCC_FLAGS and `flags` (-I csrc) into the shared
+    library `so`: written under a temporary name, then renamed, with
+    nvcc's log in nvcc.log beside it. A generated source (a per-key unit)
+    is deleted once nvcc has read it and its log is redacted. Returns
+    (seconds, log); raises RuntimeError with the log when nvcc fails,
+    leaving no library."""
     tmp = f"{so}.{_build_tag()}.tmp"
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, src],
+            [nvcc, *NVCC_FLAGS, *flags, "-I", _CSRC, "-o", tmp, src],
             capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
     finally:
         if generated:
@@ -509,20 +518,21 @@ def nvcc_build(nvcc, src, so, *, generated=False):
     return seconds, log
 
 
-def source_library(src, sources, so_name):
-    """The library nvcc builds from csrc/`src` into build/cudasp_tpu_torch/
-    <sha256 of the nvcc flags and csrc/`sources`>/`so_name`, built there
-    if it is missing, loaded with ctypes. Returns (library, (seconds, log)
-    of the nvcc build, or None when the library was found built)."""
-    digest = _hash_sources(hashlib.sha256(" ".join(NVCC_FLAGS).encode()),
-                           sources).hexdigest()[:16]
+def source_library(src, sources, so_name, flags=()):
+    """The library nvcc builds from csrc/`src` (with the extra nvcc
+    `flags`) into build/cudasp_tpu_torch/<sha256 of the nvcc flags, the
+    extra flags and csrc/`sources`>/`so_name`, built there if it is
+    missing, loaded with ctypes. Returns (library, (seconds, log) of the
+    nvcc build, or None when the library was found built)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(flags)).encode())
+    digest = _hash_sources(h, sources).hexdigest()[:16]
     out_dir = os.path.join(_BUILD_ROOT, digest)
     so = os.path.join(out_dir, so_name)
     build = None
     if not os.path.exists(so):
         nvcc = find_nvcc()
         os.makedirs(out_dir, exist_ok=True)
-        build = nvcc_build(nvcc, os.path.join(_CSRC, src), so)
+        build = nvcc_build(nvcc, os.path.join(_CSRC, src), so, flags=flags)
     return ctypes.CDLL(so), build
 
 
@@ -627,14 +637,26 @@ class ScanKernel:
     is reused while its hash matches; a loaded one is kept for the life
     of the object, so a second scan with the same key builds nothing.
 
+    ablate: the SP_ABLATE stage mask (ABLATE_STAGES) of a build variant
+    for tools/ablate_probe.py (fixed ladder only), whose flags are
+    garbage; 0, the default, is the scan kernel. A library loads only
+    into the object of its own mask (scan.cuh's cudasp_scan_ablate), so
+    the kernels of KERNELS never run an ablated build.
+
     launches: kernel launches of this ladder; hi_launches: those of them
     on a cut wire (hi32 / hi16 / hi8). nvcc_runs, build_seconds,
     build_log: this object's nvcc builds (the last one's seconds and
     ptxas log; None and "" while every library was found built)."""
 
-    def __init__(self, ladder: str):
+    def __init__(self, ladder: str, ablate: int = 0):
         if ladder not in LADDERS:
             raise ValueError(f"ladder must be one of {LADDERS}")
+        if ablate and (ladder != "fixed" or not 0 < ablate < 1 << len(
+                ABLATE_STAGES)):
+            raise ValueError(f"ablate must be a mask of {ABLATE_STAGES} "
+                             f"bits on the fixed ladder (an ablated build "
+                             f"holds that ladder only)")
+        self.ablate = ablate
         self.ladder = ladder
         self.launches = 0
         self.hi_launches = 0
@@ -655,8 +677,15 @@ class ScanKernel:
         if lib is not None:
             return lib
         if steps is None:
-            lib, build = source_library("scan.cu", _SOURCES,
-                                        "libcudasp_scan.so")
+            lib, build = source_library(
+                "scan.cu", _SOURCES, "libcudasp_scan.so",
+                ablate_flags(self.ablate))
+            lib.cudasp_scan_ablate.restype = ctypes.c_int
+            built = lib.cudasp_scan_ablate()
+            if built != self.ablate:
+                raise RuntimeError(f"{lib._name} was built with "
+                                   f"SP_ABLATE={built}; this kernel "
+                                   f"loads SP_ABLATE={self.ablate} only")
         else:
             lib, build = self._static_library(steps)
         if build is not None:
@@ -746,6 +775,20 @@ class ScanKernel:
 
 
 KERNELS = {ladder: ScanKernel(ladder) for ladder in LADDERS}
+# the ablated build variants (tools/ablate_probe.py) by mask; never a
+# scan's kernel
+ABLATED = {}
+_ablated_lock = threading.Lock()
+
+
+def ablated_kernel(mask: int) -> ScanKernel:
+    """The fixed ladder's scan kernel built with -DSP_ABLATE=mask (a mask
+    of ABLATE_STAGES bits): one object a mask, built at its first
+    library() call."""
+    with _ablated_lock:
+        if mask not in ABLATED:
+            ABLATED[mask] = ScanKernel("fixed", ablate=mask)
+        return ABLATED[mask]
 
 
 def loaded_libraries() -> int:
@@ -758,14 +801,20 @@ def loaded_libraries() -> int:
 def scan_flags(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
                spend, labels, comb, blockmask=None, *, block_rows=256,
                wire="x", pack_flags=False, ladder="fixed",
-               static_sched=None, hi_only=None, nout=None):
+               static_sched=None, hi_only=None, nout=None, ablate=0):
     """Match flags of one batch: (1, B) int8, or (1, B/32) int32 with 32
     flags per word when pack_flags. ladder: "fixed" or "wnaf" (digits is
     the key's schedule for that ladder) or "static" (static_sched is).
     hi_only: None (exact) or a cut wire as pack_batch_arrays packs it,
     whose flags are a superset of the exact flags; nout is the real output
     count, needed by hi16 / hi8. CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    tensors take the plain version. ablate (fixed ladder, CUDA tensors
+    only): launch the SP_ABLATE build variant of that mask instead
+    (ablated_kernel), whose flags are garbage: a timing instrument."""
+    if ablate and (ladder != "fixed"
+                   or tweak_words.device.type != "cuda"):
+        raise ValueError("an ablated build runs on the fixed ladder on a "
+                         "card; it has no plain version")
     if ladder not in LADDERS:
         raise ValueError(f"ladder must be one of {LADDERS}, got {ladder!r}")
     if ladder == "static":
@@ -808,7 +857,8 @@ def scan_flags(tweak_words, outputs_hi, outputs_lo, outputs_mask, digits,
             f"{tuple(outputs_hi.shape)}, {tuple(outputs_lo.shape)}, "
             f"{tuple(outputs_mask.shape)}")
     if tweak_words.device.type == "cuda":
-        return KERNELS[ladder].launch(
+        kern = ablated_kernel(ablate) if ablate else KERNELS[ladder]
+        return kern.launch(
             tweak_words, outputs_hi, outputs_lo, outputs_mask, d,
             static_sched, spend, labels, comb, blockmask, wire=wire,
             block_rows=block_rows, pack_flags=pack_flags, hi_only=hi_only,

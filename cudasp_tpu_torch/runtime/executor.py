@@ -11,20 +11,33 @@ wire, and their exact flags replace the prefilter's. "auto" picks a mode
 per batch by the reference's model (`auto_decide`); on the CPU it is
 "full", as the reference's is under interpret mode.
 
-On a CUDA device each batch's wire planes are staged into a pinned host
-buffer and go up in ONE H2D copy on a copy stream; the kernel runs on a
-compute stream ordered after that copy by an event, and its flags come
-back D2H on the compute stream. A cut's dummy planes never cross the
-wire: they are made on the device. Two buffer sets alternate, so batch
-i+1 packs on the host and uploads while batch i computes. Every H2D and
-every kernel is timed with CUDA events on its own stream; "auto" reads
-the link rate and the batch-0 kernel time from them. Everything is one
-Python loop of streams and events: no background threads, so a failure
-cannot leave the caller waiting on a dead feeder.
+A feeder thread (the counterpart of the reference's, cudasp_tpu/
+runtime/executor.py:433-455 and :634-970) pulls the batches from the
+ingest generator, picks each one's mode and packs it with the port's C
+packer (io/native.py pack_wire: the planes and the block mask in one
+pass) into a bounded queue of QUEUE_DEPTH; the caller's thread takes them
+in order and keeps the H2D, the launch, the wait and the retry. The
+feeder's put retries every PUT_TIMEOUT_S until the caller stops it; the
+caller, on its way out, stops the feeder, drains the queue and joins it
+(JOIN_TIMEOUT_S), and raises if it is still alive, so no scan leaves a
+thread behind or a caller waiting on a dead one. Under "auto" the feeder
+reads the mode when it packs, so the decision lags the batches in flight
+by up to the queue's depth, as the reference's does.
 
-A batch whose launch or result fails runs once more, re-staged from its
-PackedBatch on a spare set of buffers and streams (the pinned slot it
-used may already hold a later batch), and counts in
+On a CUDA device the feeder packs each batch straight into one of NSLOTS
+pinned staging slots of the card (after waiting on the event of the H2D
+that last read it: the only CUDA call it makes besides allocating the
+pinned memory), and the batch goes up in ONE H2D copy on a copy stream;
+the kernel runs on a compute stream ordered after that copy by an event,
+and its flags come back D2H on the compute stream. The slots cover the
+queue, the batch the feeder holds and the two in flight. A cut's dummy
+planes never cross the wire: they are made on the device. Every H2D and
+every kernel is timed with CUDA events on its own stream; "auto" reads
+the link rate and the batch-0 kernel time from them.
+
+A batch whose launch or result fails runs once more, re-packed from its
+PackedBatch on the caller's thread, on a spare set of buffers and streams
+(the pinned slot it used may already hold a later batch), and counts in
 metrics.batch_retries; a second failure raises ExecutionError(i). A
 sticky CUDA error (an illegal address) leaves the context unusable, so
 its retry fails too and raises. A failure to pack batch i, or of the
@@ -33,8 +46,9 @@ a batch are named spans (runtime.trace.annotate): cudasp.pack,
 cudasp.stage_h2d, cudasp.launch, cudasp.wait and cudasp.exact_pass.
 
 With a mesh (parallel.mesh; the counterpart of the reference's
-shard_map), each batch is split into the mesh's contiguous lane shards:
-every entry stages and uploads its shard on its own copy stream, one
+shard_map), the feeder packs each batch whole and the caller's thread
+splits it into the mesh's contiguous lane shards: every entry stages its
+shard into its own pinned slots and uploads it on its own copy stream, one
 ops.kernels.scan_flags_sharded call launches the kernel once per entry on
 that entry's compute stream, and each entry's flags come back on it. The
 batch pads to block_rows x entries; flags pack per shard where the shard
@@ -43,7 +57,7 @@ batch's bytes over the longest H2D. With rebalance=True, every batch goes
 through the row exchange (parallel.exchange) first, on the "full" wire,
 with its source rows as two more planes that come back with the flags.
 
-On the CPU the same loop calls the kernel's plain version.
+On the CPU the same feeder and loop call the kernel's plain version.
 
 backend="xla" (the counterpart of the reference's _run_xla,
 cudasp_tpu/runtime/executor.py:230-283) runs the same loop over another
@@ -60,6 +74,9 @@ exchange."""
 from __future__ import annotations
 
 import contextlib
+import queue
+import sys
+import threading
 import time
 import warnings
 from collections import OrderedDict, deque
@@ -69,6 +86,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..io import native
 from ..io.ingest import PackedBatch, split_outputs_i64
 from ..ops import kernels as K
 from ..ops import pipeline as PL
@@ -89,18 +107,18 @@ XY_KERNEL_SHARE = {"fixed": 14.945 / 16.158, "wnaf": 13.844 / 15.087,
 HYSTERESIS = 0.85     # a new mode must model at least 15% faster
 VETO_SHARE = 0.05     # more cut rows flagged than this: cuts off, sticky
 AUTO_MEMO_MAX = 64    # (ladder, width, M) entries of kernel0 + decision
+QUEUE_DEPTH = 3       # packed batches the feeder may hold ready
+PUT_TIMEOUT_S = 0.2   # the feeder's put (and slot wait) retries this often
+JOIN_TIMEOUT_S = 10.0
+# pinned staging slots of a card: the queue, the batch the feeder holds
+# and the two in flight
+NSLOTS = QUEUE_DEPTH + 3
 
 
 def wire_rows(mode: str, M: int) -> int:
     """uint32 words a row puts on the wire in `mode` at M outputs (the
     planes; the blockmask row comes on top)."""
-    if mode == "full64":
-        return 16 + 2 * M + 1
-    if mode == "full":
-        return 8 + 2 * M + 1
-    if mode == "hi32":
-        return 8 + M + 1
-    return 8 + K.hi_plane_rows(mode, M)
+    return native.plane_rows(mode, M)
 
 
 def cut_tag_for(M: int, want: str = "hi8", warn: bool = True) -> str:
@@ -139,34 +157,58 @@ def auto_decide(kernel0: float, rate: float, width: int, M: int, cut: str,
     return current
 
 
-def wire_planes(planes, mode: str):
-    """The planes of a batch that cross the wire in `mode`: a cut drops
-    ol (a dummy), hi16 / hi8 the ovm plane too."""
-    if mode not in CUTS:
-        return list(planes)
-    if mode in K.HI_UNITS:
-        return list(planes[:2])
-    return [planes[0], planes[1], planes[3]]
+def _width(n: int, pad_to: int) -> int:
+    """Lane width of a batch of n rows: a multiple of pad_to."""
+    return max(pad_to, -(-n // pad_to) * pad_to)
 
 
-def _width(n: int, block_rows: int) -> int:
-    """Lane width pack_batch_arrays gives n rows."""
-    return max(block_rows, -(-n // block_rows) * block_rows)
+@dataclass
+class _Packed:
+    """One batch on one mode's wire: host holds the planes that cross the
+    wire, then the block-mask row, (rows, width) int32; spans their rows;
+    bmask the block mask (a view of its row) or None when every block is
+    live; slot the card's pinned slot that holds host (None off the
+    direct path); seconds the C packer's."""
+    host: np.ndarray
+    spans: list
+    bmask: Optional[np.ndarray]
+    slot: Optional[int] = None
+    seconds: float = 0.0
+
+    @property
+    def width(self) -> int:
+        return self.host.shape[1]
+
+    def wire(self):
+        return [self.host[a:z] for a, z in self.spans]
 
 
-def _planes(b: PackedBatch, block_rows: int, mode: str,
-            pad_to: Optional[int] = None):
-    """PackedBatch -> (plane arrays as int32 views, blockmask or None), the
-    lanes padded to a multiple of pad_to (block_rows x mesh entries;
-    default block_rows)."""
-    planes = K.pack_batch_arrays(
-        b.tweak_blobs, b.row_valid, b.outputs_hi, b.outputs_lo,
-        b.outputs_valid, block_rows=pad_to or block_rows,
-        wire="xy" if mode == "full64" else "x",
-        hi_only=mode if mode in CUTS else None)
-    width = planes[0].shape[1]
-    bmask = K.live_blockmask(b.n_valid, width // block_rows, block_rows)
-    return [p.view(np.int32) for p in planes], bmask
+def _spans(mode: str, M: int):
+    """Rows of each plane that crosses the wire in `mode`: the tweak
+    words, then oh, ol, ovm (exact wires), oh, ovm (hi32) or the packed
+    units (hi16 / hi8)."""
+    tw = 16 if mode == "full64" else 8
+    sizes = [tw, M, M, 1] if mode in ("full", "full64") else (
+        [tw, M, 1] if mode == "hi32" else [tw, wire_rows(mode, M) - tw])
+    at = np.cumsum([0] + sizes)
+    return [(int(a), int(z)) for a, z in zip(at[:-1], at[1:])]
+
+
+def pack_host(b: PackedBatch, block_rows: int, mode: str,
+              pad_to: Optional[int] = None, out=None) -> _Packed:
+    """PackedBatch -> _Packed on `mode`'s wire, by the C packer
+    (io/native.py pack_wire), the lanes padded to a multiple of pad_to
+    (block_rows x mesh entries; default block_rows), into out (a pinned
+    slot's words) or a new array."""
+    width = _width(len(b.source_rows), pad_to or block_rows)
+    t0 = time.perf_counter()
+    host = native.pack_wire(b.tweak_blobs, b.row_valid, b.outputs_hi,
+                            b.outputs_lo, b.outputs_valid, mode, width,
+                            block_rows, b.n_valid, out=out).view(np.int32)
+    seconds = time.perf_counter() - t0
+    bm = host[-1, :width // block_rows]
+    return _Packed(host, _spans(mode, b.outputs_hi.shape[1]),
+                   None if bm.all() else bm, seconds=seconds)
 
 
 @dataclass
@@ -177,6 +219,13 @@ class _Auto:
     kernel0: Optional[float] = None
     uploads: list = field(default_factory=list)
     veto: bool = False
+
+
+@dataclass
+class _Fault:
+    """The feeder's failure on batch `index`."""
+    index: int
+    error: BaseException
 
 
 def _src_planes(sources, width: int):
@@ -197,6 +246,7 @@ class _Cpu:
     so "auto" is "full" here."""
 
     timed = False
+    ring = False          # no pinned slots: the feeder packs into arrays
 
     def __init__(self, device):
         self.device = device
@@ -227,36 +277,59 @@ class _Cpu:
         return [o.numpy() for o in outs], None, None
 
 
+_EVENTS = ("h2d0", "h2d", "k0", "x1", "k1", "done")
+
+
 class _Cuda:
-    """Staging, H2D, kernel and D2H on one card (or one mesh entry of it),
-    two buffer sets alternating (module docstring). Each entry has its own
-    copy and compute streams, pinned buffers and dummies."""
+    """Staging, H2D, kernel and D2H on one card (or one mesh entry of it)
+    through NSLOTS pinned staging slots, each with its device buffer, D2H
+    buffers and events (module docstring). Each entry has its own copy
+    and compute streams, slots and dummies. A slot is taken from `free`
+    (FIFO) to be packed or staged, and goes back once its H2D is issued;
+    whoever writes a slot's host words first waits on the event of the H2D
+    that last read them."""
 
     timed = True
+    ring = True
 
     def __init__(self, device):
         self.device = device
         self.copy_stream = torch.cuda.Stream(device)
         self.compute_stream = torch.cuda.Stream(device)
-        self.slots = [None, None]
-        self.n = 0
+        self.slots = [{ev: torch.cuda.Event(enable_timing=True)
+                       for ev in _EVENTS} for _ in range(NSLOTS)]
+        self.free = queue.Queue()
+        for k in range(NSLOTS):
+            self.free.put(k)
         self.dummies = {}
 
-    def _slot(self, k, words):
+    def take(self, stop=None):
+        """A free slot's index. With `stop` (the feeder), waits while
+        every slot holds a batch not yet uploaded, and returns None once
+        stop is set; without (the caller's thread, where every slot is
+        free), raises when none is."""
+        if stop is None:
+            try:
+                return self.free.get_nowait()
+            except queue.Empty:
+                raise RuntimeError("no free staging slot") from None
+        while not stop.is_set():
+            try:
+                return self.free.get(timeout=PUT_TIMEOUT_S)
+            except queue.Empty:
+                continue
+        return None
+
+    def host_words(self, k, words) -> np.ndarray:
+        """Slot k's pinned host words as numpy (grown to `words`), once
+        the H2D that last read them is done."""
         slot = self.slots[k]
-        if slot is None or slot["host"].numel() < words:
-            # the old set, if any, stays alive with the batch that holds it
-            timed = dict(enable_timing=True)
-            slot = self.slots[k] = {
-                "host": torch.empty(words, dtype=torch.int32,
-                                    pin_memory=True),
-                "dev": torch.empty(words, dtype=torch.int32,
-                                   device=self.device),
-                "out": [],
-                **{ev: torch.cuda.Event(**timed)
-                   for ev in ("h2d0", "h2d", "k0", "x1", "k1", "done")},
-            }
-        return slot
+        slot["h2d"].synchronize()
+        host = slot.get("host")
+        if host is None or host.numel() < words:
+            host = slot["host"] = torch.empty(words, dtype=torch.int32,
+                                              pin_memory=True)
+        return host.numpy()
 
     def dummy(self, shape):
         """A cut's dummy plane, made on the card (never uploaded)."""
@@ -268,36 +341,63 @@ class _Cuda:
     def on(self):
         return torch.cuda.stream(self.compute_stream)
 
+    def upload(self, k, pk: _Packed):
+        """The H2D of packed batch pk from slot k, which goes back to the
+        free slots -> ticket (slot, device planes, device blockmask,
+        seconds to issue it, bytes up)."""
+        slot = self.slots[k]
+        try:
+            t0 = time.perf_counter()
+            rows, width = pk.host.shape
+            words = rows * width
+            dev = slot.get("dev")
+            if dev is None or dev.numel() < words:
+                # the old buffer, if any, stays alive with the batch that
+                # holds it
+                dev = slot["dev"] = torch.empty(words, dtype=torch.int32,
+                                                device=self.device)
+            dv = dev[:words].view(rows, width)
+            with torch.cuda.stream(self.copy_stream):
+                self.copy_stream.wait_event(slot["done"])
+                slot["h2d0"].record(self.copy_stream)
+                dv.view(-1).copy_(slot["host"][:words], non_blocking=True)
+                slot["h2d"].record(self.copy_stream)
+            self.compute_stream.wait_event(slot["h2d"])
+            slot["k0"].record(self.compute_stream)
+            slot["exchanged"] = False
+            issued = time.perf_counter() - t0
+        finally:
+            self.free.put(k)
+        return (slot, [dv[a:z] for a, z in pk.spans],
+                None if pk.bmask is None else dv[rows - 1, :len(pk.bmask)],
+                issued, 4 * words)
+
     def stage(self, wire, bmask):
+        """(numpy planes, blockmask) copied into a free slot on the
+        caller's thread, then uploaded -> ticket as upload's, the copy's
+        seconds included."""
         width = wire[0].shape[1]
         nrow = sum(p.shape[0] for p in wire) + 1        # + blockmask
-        slot = self._slot(self.n % 2, nrow * width)
-        self.n += 1
-        # the H2D that last read this staging buffer must be done
-        slot["h2d"].synchronize()
-        t0 = time.perf_counter()
-        host = slot["host"][:nrow * width].view(nrow, width)
-        hv = host.numpy()
-        at, views = 0, []
-        for p in wire:
-            hv[at:at + p.shape[0]] = p
-            views.append((at, at + p.shape[0]))
-            at += p.shape[0]
-        if bmask is not None:
-            hv[at, :len(bmask)] = bmask
-        staged = time.perf_counter() - t0
-        dv = slot["dev"][:nrow * width].view(nrow, width)
-        with torch.cuda.stream(self.copy_stream):
-            self.copy_stream.wait_event(slot["done"])
-            slot["h2d0"].record(self.copy_stream)
-            dv.copy_(host, non_blocking=True)
-            slot["h2d"].record(self.copy_stream)
-        self.compute_stream.wait_event(slot["h2d"])
-        slot["k0"].record(self.compute_stream)
-        slot["exchanged"] = False
-        return (slot, [dv[a:z] for a, z in views],
-                None if bmask is None else dv[at, :len(bmask)], staged,
-                4 * nrow * width)
+        k = self.take()
+        try:
+            host = self.host_words(k, nrow * width)[:nrow * width].reshape(
+                nrow, width)
+            t0 = time.perf_counter()
+            at, spans = 0, []
+            for p in wire:
+                host[at:at + p.shape[0]] = p
+                spans.append((at, at + p.shape[0]))
+                at += p.shape[0]
+            if bmask is not None:
+                host[at, :len(bmask)] = bmask
+            staged = time.perf_counter() - t0
+        except BaseException:
+            self.free.put(k)
+            raise
+        pk = _Packed(host, spans, None if bmask is None
+                     else host[at, :len(bmask)])
+        slot, ops, bm, issued, nbytes = self.upload(k, pk)
+        return slot, ops, bm, staged + issued, nbytes
 
     def mark(self, slot):
         """The exchange ends here; the kernel starts."""
@@ -309,7 +409,7 @@ class _Cuda:
         pinned buffers of the slot."""
         with torch.cuda.stream(self.compute_stream):
             slot["k1"].record(self.compute_stream)
-            if [(o.shape, o.dtype) for o in slot["out"]] != [
+            if [(o.shape, o.dtype) for o in slot.get("out", [])] != [
                     (o.shape, o.dtype) for o in outs]:
                 slot["out"] = [torch.empty(o.shape, dtype=o.dtype,
                                            pin_memory=True) for o in outs]
@@ -346,27 +446,54 @@ def _exchange_span(slots) -> float:
     return span
 
 
-def _with_dummies(entry, ops, planes, mode):
+def _with_dummies(entry, ops, mode, M):
     """A cut's wire planes plus its dummies, made on the entry's device,
-    in the kernel's operand order."""
+    in the kernel's operand order: ol (M, 1) on hi32, (1, 1) on hi16 /
+    hi8, where ovm is a (1, 1) dummy too."""
     if mode in CUTS:
-        ops.insert(2, entry.dummy(planes[2].shape))
+        ops.insert(2, entry.dummy((1, 1) if mode in K.HI_UNITS else (M, 1)))
     if mode in K.HI_UNITS:
-        ops.append(entry.dummy(planes[3].shape))
+        ops.append(entry.dummy((1, 1)))
     return ops
 
 
 class _Run:
     """Where a scan's batches run: one device, or each mesh entry over its
-    lane shard. submit(planes, bmask, mode, M, sources) -> ticket (handle,
-    staging seconds, bytes up); result(ticket, metrics) -> (flags, source
-    rows or None for the batch's own, H2D seconds, kernel seconds), the
-    times None off the card; on a mesh the slowest entry's."""
+    lane shard. pack(b, mode, stop) -> _Packed (the feeder's half, or the
+    caller's for a retry and the exact pass); submit(packed, mode, M,
+    sources) -> ticket (handle, staging seconds, bytes up);
+    result(ticket, metrics) -> (flags, source rows or None for the
+    batch's own, H2D seconds, kernel seconds), the times None off the
+    card; on a mesh the slowest entry's."""
+
+    # one card: the feeder packs straight into its pinned slots
+    direct = True
 
     def __init__(self, ex, entries, digits, static, query):
         self.ex, self.entries, self.static = ex, entries, static
         self.digits, self.query = digits, query
         self.timed = entries[0].timed
+
+    def pack(self, b, mode, stop=None):
+        """b on `mode`'s wire: into a free pinned slot of the card (None
+        when `stop` is set while it waits for one), else into an array
+        that the caller's thread stages."""
+        e = self.entries[0]
+        br, pad_to = self.ex.block_rows, self.ex.pad_to
+        if not (self.direct and e.ring):
+            return pack_host(b, br, mode, pad_to)
+        k = e.take(stop)
+        if k is None:
+            return None
+        try:
+            words = (wire_rows(mode, b.outputs_hi.shape[1]) + 1) * _width(
+                len(b.source_rows), pad_to)
+            pk = pack_host(b, br, mode, pad_to, out=e.host_words(k, words))
+        except BaseException:
+            e.free.put(k)
+            raise
+        pk.slot = k
+        return pk
 
     def _kw(self, mode, M, pack):
         return dict(block_rows=self.ex.block_rows,
@@ -375,19 +502,20 @@ class _Run:
                     static_sched=self.static,
                     hi_only=mode if mode in CUTS else None, nout=M)
 
-    def submit(self, planes, bmask, mode, M, sources=None):
+    def submit(self, pk, mode, M, sources=None):
         """One launch (or plain-version call) on one upload mode. Flags
         come packed 32 a word where the lane width allows, else int8."""
         e = self.entries[0]
         with annotate("cudasp.stage_h2d"):
-            slot, ops, bm, staged, nbytes = e.stage(
-                wire_planes(planes, mode), bmask)
-        ops = _with_dummies(e, ops, planes, mode)
+            if pk.slot is not None:
+                slot, ops, bm, staged, nbytes = e.upload(pk.slot, pk)
+            else:
+                slot, ops, bm, staged, nbytes = e.stage(pk.wire(), pk.bmask)
+        ops = _with_dummies(e, ops, mode, M)
         sp, lab, comb = self.query[e.device]
         with e.on(), annotate("cudasp.launch"):
             flags = K.scan_flags(*ops, self.digits, sp, lab, comb, bm,
-                                 **self._kw(mode, M,
-                                            planes[0].shape[1] % 32 == 0))
+                                 **self._kw(mode, M, pk.width % 32 == 0))
         return [(e, slot, e.collect(slot, [flags]))], staged, nbytes
 
     def result(self, ticket, metrics):
@@ -413,15 +541,17 @@ class _MeshRun(_Run):
     With rebalance, the exchange (parallel.exchange) first evens out the
     live rows, and the source rows travel with them."""
 
-    def submit(self, planes, bmask, mode, M, sources=None):
+    direct = False
+
+    def submit(self, pk, mode, M, sources=None):
         from ..parallel import exchange as X
         from ..parallel.mesh import lane_ranges
 
         mesh = self.ex.mesh
         n = mesh.size
-        B = planes[0].shape[1]
+        B = pk.width
         nbl = B // self.ex.block_rows // n
-        wire = wire_planes(planes, mode)
+        wire, bmask = pk.wire(), pk.bmask
         if sources is not None:
             # the exchange makes its own block masks on the device
             wire += _src_planes(sources, B)
@@ -436,7 +566,7 @@ class _MeshRun(_Run):
                     else bmask[k * nbl:(k + 1) * nbl])
                 ticket.append((e, slot))
                 staged, nbytes = staged + s, nbytes + b
-                ops.append(_with_dummies(e, o, planes, mode))
+                ops.append(_with_dummies(e, o, mode, M))
                 bms.append(bm)
         lanes = [list(x) for x in zip(*ops)]
         streams = [e.compute_stream for e in self.entries]
@@ -469,13 +599,16 @@ class _XlaRun(_Run):
     entry's lane shard on that entry's compute stream; (1, B) int8
     flags."""
 
-    def submit(self, planes, bmask, mode, M, sources=None):
+    direct = False
+
+    def submit(self, pk, mode, M, sources=None):
         from ..parallel.mesh import lane_ranges
 
         fn = PL.scan_batch_fused if self.ex.fused else PL.scan_batch
+        planes = pk.wire()
         ticket, staged, nbytes = [], 0.0, 0
         for e, (a, z) in zip(self.entries, lane_ranges(
-                len(self.entries), planes[0].shape[1])):
+                len(self.entries), pk.width)):
             with annotate("cudasp.stage_h2d"):
                 slot, ops, _, s, b = e.stage([p[:, a:z] for p in planes],
                                              None)
@@ -502,8 +635,9 @@ class BatchExecutor:
 
     # process-wide: (ladder, width, M[, mesh]) -> (kernel0 seconds,
     # decision) of "auto", so a later scan of the same shape starts from
-    # them
+    # them; concurrent scans read and write it under _memo_lock only
     _auto_memo: "OrderedDict" = OrderedDict()
+    _memo_lock = threading.Lock()
 
     def __init__(self, device, block_rows: int = 256, upload: str = "full",
                  ladder: str = "fixed", mesh=None, rebalance: bool = False,
@@ -558,10 +692,10 @@ class BatchExecutor:
 
     def run(self, batches, sched, spend, labels,
             metrics: Optional[ScanMetrics] = None) -> List[tuple]:
-        """batches: iterable of ingest.PackedBatch (a generator packs lazily).
-        sched: ingest.ScanSchedule; spend (2, 8) and labels (L, 2, 8)
-        uint32 numpy. Returns per-batch (flags bool (B,), source_rows
-        int64 (B,))."""
+        """batches: iterable of ingest.PackedBatch (a generator packs lazily
+        on the feeder thread). sched: ingest.ScanSchedule; spend (2, 8)
+        and labels (L, 2, 8) uint32 numpy. Returns per-batch (flags bool
+        (B,), source_rows int64 (B,))."""
         t_run = time.perf_counter()
         digits, static = ((sched.glv, None) if self.xla
                           else sched.operands(self.ladder))
@@ -571,10 +705,12 @@ class BatchExecutor:
             # "static") before the first batch is packed: a failed build
             # raises here, and nothing falls back to another ladder
             K.KERNELS[self.ladder].library(static)
+        # the C packer is built (g++) before the feeder starts, too
+        native.library()
         dev = self._run_on(digits, static, spend, labels)
         auto = (_Auto() if self.upload == "auto" and dev.timed
                 and not self.rebalance else None)
-        memo_key = None
+        memo_key = []         # the feeder's batch-0 shape under "auto"
         tags = {}
         results = []          # [flags bool (n,), source rows]
         queued = []           # flagged rows of cut batches (exact pass)
@@ -597,8 +733,8 @@ class BatchExecutor:
                 tags[M, want] = cut_tag_for(M, want, warn=auto is None)
             return tags[M, want]
 
-        def submit(run, b, planes, bmask, mode, M):
-            ticket = run.submit(planes, bmask, mode, M,
+        def submit(run, b, pk, mode, M):
+            ticket = run.submit(pk, mode, M,
                                 b.source_rows if self.rebalance else None)
             if metrics is not None:
                 metrics.upload_seconds += ticket[1]
@@ -607,8 +743,8 @@ class BatchExecutor:
 
         def outcome(ticket, i, b, mode, fault):
             """(ticket, dev.result) of batch i; a failed submit or result
-            runs once more, re-packed from b, on the spare run, which only
-            ever holds that one batch."""
+            runs once more, re-packed from b on the caller's thread, on
+            the spare run, which only ever holds that one batch."""
             if fault is None:
                 try:
                     return ticket, dev.result(ticket, metrics)
@@ -620,9 +756,7 @@ class BatchExecutor:
                 if not spare:
                     spare.append(self._run_on(digits, static, spend, labels))
                 M = b.outputs_hi.shape[1]
-                planes, bmask = _planes(b, self.block_rows, mode,
-                                        self.pad_to)
-                ticket = submit(spare[0], b, planes, bmask, mode, M)
+                ticket = submit(spare[0], b, spare[0].pack(b, mode), mode, M)
                 return ticket, spare[0].result(ticket, metrics)
             except Exception:
                 raise ExecutionError(i, fault) from fault
@@ -681,50 +815,114 @@ class BatchExecutor:
                 except Exception as e:
                     raise ExecutionError(entry[1], e) from e
 
-        scan_width = 0
-        for i, b in enumerate(batches):
+        q = queue.Queue(maxsize=QUEUE_DEPTH)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """A bounded put that gives up once the caller has stopped the
+            feeder (a plain put could block for ever on a full queue)."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=PUT_TIMEOUT_S)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def feeder():
+            i = -1
             try:
-                M = b.outputs_hi.shape[1]
-                width = _width(len(b.source_rows), self.pad_to)
-                scan_width = max(scan_width, width)
-                if auto is not None and i == 0:
-                    memo_key = (self.ladder, width, M) + (
-                        () if self.mesh is None else (self.mesh,))
-                    memo = BatchExecutor._auto_memo.get(memo_key)
-                    if memo is not None:
-                        auto.kernel0, auto.want = memo
-                mode = mode_for(M)
-                if mode != "full":
-                    used[0] = mode
-                t0 = time.perf_counter()
-                with annotate("cudasp.pack"):
-                    planes, bmask = _planes(b, self.block_rows, mode,
-                                            self.pad_to)
+                it = iter(batches)
+                while not stop.is_set():
+                    i += 1
+                    t0 = time.perf_counter()
+                    with annotate("cudasp.pack"):
+                        b = next(it, None)
+                        if b is None:
+                            break
+                        pulled = time.perf_counter() - t0
+                        M = b.outputs_hi.shape[1]
+                        if auto is not None and i == 0:
+                            memo_key.append((self.ladder, _width(
+                                len(b.source_rows), self.pad_to), M) + (
+                                () if self.mesh is None else (self.mesh,)))
+                            with BatchExecutor._memo_lock:
+                                memo = BatchExecutor._auto_memo.get(
+                                    memo_key[0])
+                            if memo is not None:
+                                auto.kernel0, auto.want = memo
+                        mode = mode_for(M)
+                        if mode != "full":
+                            used[0] = mode
+                        pk = dev.pack(b, mode, stop)
+                    if pk is None:
+                        return
+                    if metrics is not None:
+                        metrics.pack_seconds += pulled + pk.seconds
+                    if not put((i, b, pk, mode, M)):
+                        return
+            except Exception as e:
+                put(_Fault(i, e))
+                return
+            put(None)
+
+        th = threading.Thread(target=feeder, name="cudasp-feeder",
+                              daemon=True)
+        th.start()
+        scan_width = 0
+        try:
+            while True:
+                try:
+                    item = q.get(timeout=PUT_TIMEOUT_S)
+                except queue.Empty:
+                    if th.is_alive():
+                        continue
+                    raise RuntimeError("the feeder thread died without "
+                                       "a result") from None
+                if item is None:
+                    break
+                if isinstance(item, _Fault):
+                    raise ExecutionError(item.index, item.error) \
+                        from item.error
+                i, b, pk, mode, M = item
+                scan_width = max(scan_width, pk.width)
                 if metrics is not None:
-                    metrics.pack_seconds += time.perf_counter() - t0
                     metrics.batches += 1
                     if self.rebalance:
-                        metrics.exchange_bytes += 4 * width * (
-                            sum(p.shape[0] for p in planes) + 2)
-            except Exception as e:
-                raise ExecutionError(i, e) from e
+                        metrics.exchange_bytes += 4 * pk.width * (
+                            wire_rows(mode, M) + 2)
+                try:
+                    ticket, fault = submit(dev, b, pk, mode, M), None
+                except Exception as e:
+                    ticket, fault = None, e
+                inflight.append((ticket, i, b, mode, fault))
+                # a failed submit retries now, before a later batch
+                # launches
+                drain(1 if fault is None else 0)
+            drain(0)
+            if queued:
+                with annotate("cudasp.exact_pass"):
+                    self._reverify(dev, queued, results, scan_width,
+                                   metrics)
+        finally:
+            stop.set()
+            # the feeder leaves a full queue within one put timeout once
+            # it is drained; the join must not hide a thread that stays
             try:
-                ticket, fault = submit(dev, b, planes, bmask, mode, M), None
-            except Exception as e:
-                ticket, fault = None, e
-            inflight.append((ticket, i, b, mode, fault))
-            # a failed submit retries now, before a later batch launches
-            drain(1 if fault is None else 0)
-        drain(0)
-        if queued:
-            with annotate("cudasp.exact_pass"):
-                self._reverify(dev, queued, results, scan_width, metrics)
-        if auto is not None and memo_key is not None:
-            memo = BatchExecutor._auto_memo
-            memo[memo_key] = (auto.kernel0, auto.want)
-            memo.move_to_end(memo_key)
-            while len(memo) > AUTO_MEMO_MAX:
-                memo.popitem(last=False)
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            th.join(timeout=JOIN_TIMEOUT_S)
+            if th.is_alive() and sys.exc_info()[0] is None:
+                raise RuntimeError("the feeder thread did not stop")
+        if auto is not None and memo_key:
+            with BatchExecutor._memo_lock:
+                memo = BatchExecutor._auto_memo
+                memo[memo_key[0]] = (auto.kernel0, auto.want)
+                memo.move_to_end(memo_key[0])
+                while len(memo) > AUTO_MEMO_MAX:
+                    memo.popitem(last=False)
         if metrics is not None:
             metrics.device_seconds += time.perf_counter() - t_run
             metrics.upload_mode = used[0]
@@ -756,9 +954,8 @@ class BatchExecutor:
                 b = PackedBatch(blobs[a:z], np.ones(z - a, bool), oh[a:z],
                                 ol[a:z], ov[a:z],
                                 np.arange(a, z, dtype=np.int64))
-                planes, bmask = _planes(b, self.block_rows, "full",
-                                        self.pad_to)
-                ticket = dev.submit(planes, bmask, "full", oh.shape[1])
+                ticket = dev.submit(dev.pack(b, "full"), "full",
+                                    oh.shape[1])
                 if metrics is not None:
                     metrics.upload_seconds += ticket[1]
                     metrics.upload_bytes += ticket[2]

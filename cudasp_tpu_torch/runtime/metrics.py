@@ -7,7 +7,8 @@ Two of the reference's fields differ in meaning here:
 - total_seconds is the wall time of the scan, from argument checks to the
   result. The reference adds its pack_seconds to a timer that already
   runs while its feeder thread packs, so its total counts packing twice;
-  the port packs in its one loop and counts it once.
+  the port's feeder thread sums pack_seconds on its own, and the total
+  counts that time once, in the wall clock.
 - prewarm_failures is always 0: the port builds a kernel library before
   the first batch of a scan that needs it, on the calling thread, and has
   no prewarm thread whose failures the reference counts."""
@@ -33,12 +34,12 @@ class ScanMetrics:
     upload_mode: str = ""
     reverified_rows: int = 0       # rows a cut flagged: the exact pass's
     ladder: str = ""               # "fixed", "wnaf" or "static"
-    # Stage attribution. pack runs on the host between launches and
+    # Stage attribution. pack runs on the executor's feeder thread and
     # overlaps the device, so the stages do not sum to total_seconds; the
     # larger of pack + upload and device_wait names the bottleneck.
-    pack_seconds: float = 0.0          # host ingest + plane packing
+    pack_seconds: float = 0.0          # feeder: ingest + the C packer
     upload_bytes: int = 0              # H2D bytes (planes + blockmask)
-    upload_seconds: float = 0.0        # host time staging into pinned
+    upload_seconds: float = 0.0        # caller: staging and H2D issue
     h2d_seconds: float = 0.0           # the H2D copies, by CUDA events
     device_wait_seconds: float = 0.0   # host blocked on batch results
     device_seconds: float = 0.0        # the executor's whole run

@@ -2,8 +2,9 @@
 cudasp_tpu/runtime/trace.py).
 
 Set ``CUDASP_PROFILE_DIR=/some/dir`` to write one torch.profiler Chrome
-trace per scan into that directory (CPU activities, and the card's
-kernels and copies where there is a card), or capture one by hand:
+trace per scan into that directory (CPU activities of every thread, the
+executor's feeder included, and the card's kernels and copies where there
+is a card), or capture one by hand:
 
     with trace_scan("/tmp/trace"):
         scan(...)
@@ -46,7 +47,8 @@ def trace_scan(trace_dir=None):
     path = os.path.join(trace_dir,
                         f"scan-{os.getpid()}-{time.time_ns()}.json")
     t0 = time.perf_counter()
-    prof = profile(activities=activities)
+    prof = profile(activities=activities,
+                   experimental_config=_all_threads())
     prof.start()
     try:
         yield
@@ -55,6 +57,19 @@ def trace_scan(trace_dir=None):
         prof.export_chrome_trace(path)
         log.info("scan trace (%.3fs) written to %s",
                  time.perf_counter() - t0, path)
+
+
+def _all_threads():
+    """The profiler's config that records every thread's spans (the
+    executor's feeder packs on a thread of its own), or None, with a
+    warning, on a torch without that option."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        log.warning("this torch's profiler records the calling thread "
+                    "only: the feeder's cudasp.pack spans are not traced")
+        return None
 
 
 @functools.lru_cache(maxsize=1)

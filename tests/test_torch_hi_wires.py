@@ -254,8 +254,8 @@ def test_wire_bytes_per_row_at_three_outputs(decoys, mode, bytes_per_row):
     """What a row puts on the wire at M = 3, counted on the planes the
     card's staging sends (a cut's dummies stay behind), before the
     blockmask row."""
-    planes, _ = TX._planes(next(_packed(decoys[0], 32)), 32, mode)
-    sent = sum(p.nbytes for p in TX.wire_planes(planes, mode))
+    pk = TX.pack_host(next(_packed(decoys[0], 32)), 32, mode)
+    sent = sum(p.nbytes for p in pk.wire())
     assert sent == 32 * bytes_per_row == 32 * 4 * TX.wire_rows(mode, 3)
 
 
@@ -336,13 +336,22 @@ class _TimedCpu(TX._Cpu):
 
 
 def test_auto_loop_cuts_on_a_slow_link_memoizes_and_vetoes(monkeypatch):
-    """The auto loop with faked device times: batches 0 and 1 ship full
-    (batch 1 is staged before batch 0's times are read), then hi8; the
-    rows stay exact through the exact pass, and a second scan of the same
-    shape starts on the memoized hi8. On a table where every row matches,
-    the density veto sends the scan back to full."""
-    table, key, spend, planted, _ = _decoy_table(25, n=128, share=0.03,
+    """The auto loop with faked device times: the feeder reads the mode
+    when it packs, so batches 0 and 1 ship full (batch 1 is packed before
+    batch 0's times are read), and the cut starts by the first batch
+    packed after that: at most QUEUE_DEPTH + 3 batches in (the queue, the
+    batch the feeder holds, the one in flight); the rows stay exact
+    through the exact pass, and a second scan of the same shape starts on
+    the memoized hi8. On a table where every row matches, the density veto
+    sends the scan back to full, as many batches later at most."""
+    lag = TX.QUEUE_DEPTH + 3
+    n = 32 * (lag + 2)
+    # a table whose hi8 flags stay at one row in 32 at most (under the
+    # density veto wherever the cut starts), with planted rows in the
+    # last batches too, so the exact pass has rows
+    table, key, spend, planted, _ = _decoy_table(42, n=n, share=0.03,
                                                  decoy=0.0)
+    assert (planted >= 32 * lag).any()
     monkeypatch.setattr(TX, "_Cpu", _TimedCpu)
     monkeypatch.setattr(TX.BatchExecutor, "_auto_memo", TX.OrderedDict())
     memo = TX.BatchExecutor._auto_memo
@@ -356,7 +365,10 @@ def test_auto_loop_cuts_on_a_slow_link_memoizes_and_vetoes(monkeypatch):
     monkeypatch.setattr(TK, "scan_flags", spy)
     rows, m = _executor_rows(table, key, spend, "auto")
     np.testing.assert_array_equal(rows, planted)
-    assert modes == [None, None, "hi8", "hi8", None]   # + the exact pass
+    batches = n // 32
+    k = modes.index("hi8")
+    assert 2 <= k <= lag
+    assert modes == [None] * k + ["hi8"] * (batches - k) + [None]
     assert m.upload_mode == "hi8" and m.reverified_rows > 0
     assert m.kernel0_seconds == 1e-6
     assert m.link_bytes_per_second == pytest.approx(50e6)
@@ -365,14 +377,20 @@ def test_auto_loop_cuts_on_a_slow_link_memoizes_and_vetoes(monkeypatch):
     rows, _ = _executor_rows(table, key, spend, "auto")
     np.testing.assert_array_equal(rows, planted)
     assert modes[0] == "hi8"
-    # every row matches: the first cut batch (2) flags all its rows, and
-    # the veto turns the cuts off from the next batch staged (4) on, and
-    # for the memo
+    # every row matches: the first cut batch flags all its rows, and the
+    # veto turns the cuts off for the batches packed after it is read,
+    # and for the memo; then the exact pass, one 32-row launch a cut
+    # batch
     memo.clear()
     modes.clear()
-    tab, k2, s2, hot, _ = _decoy_table(24, n=160, share=1.0, decoy=0.0)
+    batches = 2 * lag + 2
+    tab, k2, s2, hot, _ = _decoy_table(24, n=32 * batches, share=1.0,
+                                       decoy=0.0)
     rows, m = _executor_rows(tab, k2, s2, "auto")
     np.testing.assert_array_equal(rows, hot)
-    # then the exact pass: 64 rows at the scan's 32-row width
-    assert modes == [None, None, "hi8", "hi8", None, None, None]
+    first = modes.index("hi8")
+    cut = modes[first:].index(None)
+    assert 2 <= first <= lag and 1 <= cut <= lag
+    assert modes == [None] * first + ["hi8"] * cut + [None] * (
+        batches - first - cut) + [None] * cut
     assert memo[("fixed", 32, 3)][1] == "full"

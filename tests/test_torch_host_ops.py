@@ -160,6 +160,13 @@ def test_iter_packed_equals_jax_kernel_layout(max_outputs):
                               layout="kernel"))
     assert len(ours) == len(ref) > 1
     for a, b in zip(ours, ref):
-        for name in ("tweak_blobs", "row_valid", "outputs_hi", "outputs_lo",
-                     "outputs_valid", "source_rows"):
+        for name in ("tweak_blobs", "row_valid", "outputs_valid",
+                     "source_rows"):
             np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        # an empty output slot: the JAX package's numpy gather leaves the
+        # table's first value there, the port's C gather (csrc/pack.cpp,
+        # as csrc/ingest.cpp) 0; no wire reads it (its valid bit is 0)
+        for name in ("outputs_hi", "outputs_lo"):
+            np.testing.assert_array_equal(
+                getattr(a, name), np.where(b.outputs_valid,
+                                           getattr(b, name), 0))

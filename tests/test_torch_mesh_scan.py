@@ -136,25 +136,29 @@ class _TimedCpu(TX._Cpu):
 def test_auto_on_a_mesh_models_the_slowest_entry(monkeypatch):
     """On a 2-entry mesh, "auto" reads the slowest entry's kernel time and
     the batch's bytes over the longest H2D (twice one entry's link), cuts
-    to hi8 from the first batch staged after batch 0's times, keeps the
-    rows exact through the exact pass, and memoizes per mesh."""
+    to hi8 from the first batch the feeder packs after batch 0's times,
+    keeps the rows exact through the exact pass, and memoizes per
+    mesh."""
     monkeypatch.setattr(TX, "_Cpu", _TimedCpu)
     monkeypatch.setattr(TX.BatchExecutor, "_auto_memo", TX.OrderedDict())
     _TimedCpu.made = 0
     case = JV.CASES[0]          # row 0 matches, row 1 does not
     assert case.expected_heights == (case.rows[0].height,)
-    pick = [0 if j % 64 == 0 else 1 for j in range(512)]   # 1.6% match
+    pick = [0 if j % 64 == 0 else 1 for j in range(1024)]  # 1.6% match
     table = {"tweak_key": np.stack([np.frombuffer(
                  case.rows[k].tweak_blob, np.uint8) for k in pick]),
              "outputs": [list(case.rows[k].outputs) for k in pick]}
     mesh = make_mesh(devices=["cpu"] * 2)
     res = ct.scan(table, case.scan_key_blob, case.spend_blob, device="cpu",
                   batch_size=128, config=ct.ScanConfig(mesh=mesh, **SMALL))
-    assert res.indices.tolist() == list(range(0, 512, 64))
+    assert res.indices.tolist() == list(range(0, 1024, 64))
     m = res.metrics
-    # batches 0 and 1 ship full (batch 1 is staged before batch 0's times
-    # are read); 2 and 3 ship hi8, and their 4 matches pass the exact pass
-    assert m.batches == 4 and m.upload_mode == "hi8"
+    # batches 0 and 1 ship full (batch 1 is packed before batch 0's times
+    # are read); the feeder packs at most QUEUE_DEPTH + 3 batches ahead of
+    # the decision, so batches 6 and 7 at least ship hi8, and their
+    # matches (two a batch) pass the exact pass
+    assert TX.QUEUE_DEPTH + 3 <= 6
+    assert m.batches == 8 and m.upload_mode == "hi8"
     assert m.reverified_rows >= 4
     assert m.kernel0_seconds == pytest.approx(2e-6)
     assert m.link_bytes_per_second == pytest.approx(100e6)

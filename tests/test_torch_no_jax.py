@@ -60,15 +60,17 @@ def test_port_sources_name_no_jax_module():
 
 
 def test_kernel_sources_and_generated_tu_include_only_port_headers():
-    """The CUDA sources, and the per-key translation unit that
-    ops/kernels.py generates, include the port's own headers and the
-    C/CUDA runtime only: nothing of the JAX package's csrc/."""
+    """The CUDA sources, the host packer (pack.cpp) and the per-key
+    translation unit that ops/kernels.py generates include the port's own
+    headers, the C/CUDA runtime and, in the packer, the C++ thread
+    library only: nothing of the JAX package's csrc/."""
     from cudasp_tpu_torch.ops import kernels as TK
     from cudasp_tpu_torch.ops import scalar as TS
 
     csrc = ROOT / "cudasp_tpu_torch" / "csrc"
     allowed = {p.name for p in csrc.iterdir()} | {
-        "stddef.h", "stdint.h", "cuda_runtime.h"}
+        "stddef.h", "stdint.h", "string.h", "cuda_runtime.h", "thread",
+        "vector"}
     texts = [(p.name, p.read_text()) for p in csrc.iterdir()]
     texts.append(("generated", TK.static_source(TS.glv_wnaf_static(77))))
     for name, text in texts:
