@@ -73,7 +73,12 @@
 # scans with CUDASP_RAMP=65536. The tools phase runs kernel_probe,
 # h2d_probe, concurrency_probe, ablate_probe (its seven SP_ABLATE
 # builds start with the others), scaling_probe, multihost_bench,
-# seed_cache and first_contact, each with its own check. Every phase
+# seed_cache and first_contact, each with its own check. oracle-cli runs
+# the port's oracle CLI in subprocesses (gen-vectors, its table scanned on
+# the card by the CLI; compute-expected on a golden row), and bench-curve
+# runs python -m cudasp_tpu_torch.tools.bench_curve at the reference's
+# sizes (1M, 9.4M and 32.7M rows, and 1M with one label), each point a
+# fresh bench process that checks every timed run's rows. Every phase
 # prints one line with its result and the elapsed seconds; any failure
 # raises, so the exit code is non-zero. The last lines are the kernels'
 # JSON line, the card's name and power limit, and {"ok": true, "device":
@@ -1338,6 +1343,133 @@ def tools_phase(stages, smi):
     return ab
 
 
+
+ORACLE_ROWS = 256
+ORACLE_MATCH_EVERY = 8
+# golden case 0's first row under its keys (tests/test_oracle_cli.py)
+ORACLE_BASE = "base: 1714273258699162470"
+# the bench curve's subprocess, its four bench processes included
+CURVE_TIMEOUT_S = 400
+
+
+def run_group(cmd, root, timeout):
+    """subprocess.run in a session of its own: on a timeout the whole
+    process group (a tool and the processes it starts) is ended."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=root, env=dict(os.environ,
+                                                    PYTHONPATH=root),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{' '.join(cmd[1:4])}: no end in {timeout} s")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def oracle_cli_phase(smi):
+    """oracle-cli: the port's oracle CLI on the card host. gen-vectors
+    (ORACLE_ROWS rows, seed 1, every ORACLE_MATCH_EVERY-th a match) in a
+    subprocess; its rows, less expect_match, written as JSONL and scanned
+    on the card by python -m cudasp_tpu_torch scan: the matched txids ==
+    the rows marked expect_match; compute-expected on golden case 0's
+    first row prints ORACLE_BASE."""
+    import tempfile
+
+    from cudasp_tpu_torch.oracle import vectors as V
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+
+    def run(*args):
+        proc = run_group([sys.executable, "-m", *args], root, 300)
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(args[:2])}: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        return proc.stdout
+
+    lines = run("cudasp_tpu_torch.oracle", "gen-vectors", "--rows",
+                str(ORACLE_ROWS), "--seed", "1", "--match-every",
+                str(ORACLE_MATCH_EVERY)).splitlines()
+    keys = json.loads(lines[0])["keys"]
+    rows = [json.loads(ln) for ln in lines[1:]]
+    want = [r["txid"] for r in rows if r.pop("expect_match")]
+    gen_secs = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vectors.jsonl")
+        with open(path, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+        out = run("cudasp_tpu_torch", "scan", "--input", path, "--scan-key",
+                  keys["scan_private_key"], "--spend-key",
+                  keys["spend_public_key"])
+    got = [json.loads(ln)["txid"] for ln in out.splitlines()]
+    if len(rows) != ORACLE_ROWS or got != want:
+        raise AssertionError(f"oracle-cli: {len(rows)} rows, scan matched "
+                             f"{len(got)} txids, expect_match marks "
+                             f"{len(want)}")
+    case = V.CASES[0]
+    r0 = case.rows[0]
+    base = run("cudasp_tpu_torch.oracle", "compute-expected", "--tweak",
+               r0.tweak_blob.hex(), "--scan-key", case.scan_key_blob.hex(),
+               "--spend-key", case.spend_blob.hex()).strip()
+    if base != ORACLE_BASE:
+        raise AssertionError(f"oracle-cli: compute-expected printed {base!r}")
+    phase("oracle-cli", f"python -m cudasp_tpu_torch.oracle gen-vectors "
+          f"--rows {ORACLE_ROWS} --seed 1 --match-every "
+          f"{ORACLE_MATCH_EVERY} ({gen_secs:.1f} s), scanned on the card by "
+          f"python -m cudasp_tpu_torch scan: {len(got)} txids == the rows "
+          f"marked expect_match; compute-expected on golden case 0 row 0: "
+          f"{base!r} | {smi} [{time.perf_counter() - t0:.1f} s]")
+
+
+def bench_curve_phase(smi):
+    """bench-curve: python -m cudasp_tpu_torch.tools.bench_curve at its
+    default points (1M, 9.4M and 32.7M rows, and 1M with one label), each
+    a fresh bench process whose every timed run returned exactly the
+    planted rows (the bench exits 1 otherwise), writing under build/. One
+    line a point from the records the tool printed (not the merged file):
+    tx/s, the best run's stages, spread, and at 1M the kernel-only rows/s
+    of each variant. Returns the records."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = run_group([sys.executable, "-m",
+                      "cudasp_tpu_torch.tools.bench_curve"], root,
+                     CURVE_TIMEOUT_S)
+    records = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")]
+    bad = [r for r in records if "error" in r or not r.get("value")]
+    if proc.returncode != 0 or bad or len(records) != 4:
+        raise AssertionError(f"bench_curve: exit {proc.returncode}, "
+                             f"{len(records)} records, failed {bad}\n"
+                             f"{proc.stderr[-3000:]}")
+    for r in records:
+        best = min(r["runs"], key=lambda run: run["seconds"])
+        kern = ", ".join(f"{k.removeprefix('kernel_rows_per_s').strip('_') or 'x'}"
+                         f" {v / 1e6:.2f} M rows/s"
+                         for k, v in r.items()
+                         if k.startswith("kernel_rows_per_s"))
+        phase("bench-curve", f"{r['rows']:,} rows, labels {r['labels']}: "
+              f"{r['value'] / 1e6:.3f} M tx/s (best {r['seconds']:.4f} s of "
+              f"{r['repeats']} runs {[round(x['seconds'], 4) for x in r['runs']]}"
+              f"; spread {r['spread']:.3f}, spread_best2 "
+              f"{r['spread_best2']:.3f}); batch {r['batch_size']}, "
+              f"{best['launch_rows']} rows a launch, {best['batches']} "
+              f"batches; link {r['link_MBps'] / 1e3:.2f} GB/s (H2D by "
+              f"events); best run pack {best['pack_seconds']:.3f} s, H2D "
+              f"{best['h2d_seconds']:.4f} s, device wait "
+              f"{best['device_wait_seconds']:.3f} s; upload "
+              f"{r['upload_mode']}; {r.get('vs_reference_point', 0):.2f}x "
+              f"the upstream GPU's point"
+              + (f"; kernel-only at 524,288 rows: {kern}" if kern else "")
+              + f" | {r['device']['name']}, {r['device']['power_limit']}")
+    phase("bench-curve", f"4 points, {time.perf_counter() - t0:.1f} s in all "
+          f"| {smi}")
+    return records
+
+
 MULTIHOST_ROWS = 20_000
 
 
@@ -2588,6 +2720,10 @@ def main():
 
     # --- the slice's tools ------------------------------------------------
     ablate = tools_phase(stages, smi)
+
+    # --- the bench and the curve; the oracle CLI on the card host --------
+    oracle_cli_phase(smi)
+    bench_curve_phase(smi)
 
     def probe_entry(name):
         v = probes[name]

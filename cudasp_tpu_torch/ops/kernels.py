@@ -518,15 +518,20 @@ def nvcc_build(nvcc, src, so, *, generated=False, flags=()):
     return seconds, log
 
 
+def library_digest(sources, flags=()) -> str:
+    """The build directory's name of a library: sha256 of the nvcc flags,
+    the extra `flags` and csrc/`sources`."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(flags)).encode())
+    return _hash_sources(h, sources).hexdigest()[:16]
+
+
 def source_library(src, sources, so_name, flags=()):
     """The library nvcc builds from csrc/`src` (with the extra nvcc
-    `flags`) into build/cudasp_tpu_torch/<sha256 of the nvcc flags, the
-    extra flags and csrc/`sources`>/`so_name`, built there if it is
-    missing, loaded with ctypes. Returns (library, (seconds, log) of the
-    nvcc build, or None when the library was found built)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(flags)).encode())
-    digest = _hash_sources(h, sources).hexdigest()[:16]
-    out_dir = os.path.join(_BUILD_ROOT, digest)
+    `flags`) into build/cudasp_tpu_torch/<library_digest>/`so_name`,
+    built there if it is missing, loaded with ctypes. Returns (library,
+    (seconds, log) of the nvcc build, or None when the library was found
+    built)."""
+    out_dir = os.path.join(_BUILD_ROOT, library_digest(sources, flags))
     so = os.path.join(out_dir, so_name)
     build = None
     if not os.path.exists(so):

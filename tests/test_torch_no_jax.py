@@ -14,8 +14,11 @@ PROBE = r"""
 import importlib, pkgutil, sys
 import numpy as np
 import cudasp_tpu_torch as ct
-for m in pkgutil.walk_packages(ct.__path__, "cudasp_tpu_torch."):
-    importlib.import_module(m.name)
+mods = [m.name for m in pkgutil.walk_packages(ct.__path__,
+                                              "cudasp_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+print("MODS", " ".join(mods))
 import chip_smoke
 from cudasp_tpu_torch.oracle import vectors as V
 case = V.CASES[0]
@@ -29,6 +32,13 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cudasp_tpu"))
 print("BAD", bad)
 """
+
+
+# the bench, its curve and the oracle CLI: each is imported above, and
+# the oracle CLI imports no torch itself
+NEW_ENTRY_POINTS = ("cudasp_tpu_torch.tools.bench",
+                    "cudasp_tpu_torch.tools.bench_curve",
+                    "cudasp_tpu_torch.oracle.__main__")
 
 
 def _env():
@@ -46,6 +56,9 @@ def test_port_and_chip_smoke_never_import_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "BAD []" in out.stdout, out.stdout
+    mods = next(ln for ln in out.stdout.splitlines()
+                if ln.startswith("MODS ")).split()[1:]
+    assert set(NEW_ENTRY_POINTS) <= set(mods), mods
 
 
 def test_port_sources_name_no_jax_module():
@@ -57,6 +70,18 @@ def test_port_sources_name_no_jax_module():
                 words = code.replace(",", " ").split()
                 assert not {"jax", "jaxlib", "cudasp_tpu"} & {
                     w.split(".")[0] for w in words}, (path, line)
+
+
+def test_oracle_cli_and_its_oracle_import_no_torch():
+    """The oracle CLI and the oracle modules it is built on import the
+    standard library and each other only."""
+    for path in (ROOT / "cudasp_tpu_torch" / "oracle").glob("*.py"):
+        for line in path.read_text().splitlines():
+            if line.startswith(("import ", "from ")):
+                top = line.split()[1].split(".")[0]
+                assert top in ("", "__future__", "argparse", "json", "sys",
+                               "typing", "hashlib", "struct",
+                               "dataclasses"), (path.name, line)
 
 
 def test_kernel_sources_and_generated_tu_include_only_port_headers():
